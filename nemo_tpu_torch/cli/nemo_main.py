@@ -2,10 +2,11 @@
 """nemo command (PyTorch port): filter maps and find clusters / sources.
 
 Same flags and output layout as ``nemo_tpu.cli.nemo_main``, plus
-``--device``.  Runs the filter and catalog stage; the stages that are not
-ported yet fail before any work (fitQ, the selection function, source
-injection, stitching several tiles) or are reported as skipped (the
-selection-function epilogue).
+``--device``.  Runs the filter and catalog stage (per tile, or batched over
+tiles with ``useDeviceBatching: true``), then stitches the tiles' maps and
+makes quick-look maps as the JAX CLI does.  The stages that are not ported
+yet fail before any work (fitQ, the selection function, source injection)
+or are reported as skipped (the selection-function epilogue).
 
     python -m nemo_tpu_torch.cli.nemo_main config.yml --device cuda
 """
@@ -14,7 +15,7 @@ import argparse
 import os
 import sys
 
-from nemo_tpu_torch import catalogs, pipelines, startup
+from nemo_tpu_torch import catalogs, maps, pipelines, startup
 from nemo_tpu_torch.utils.timing import GLOBAL_TIMER, profile_trace
 
 
@@ -66,9 +67,6 @@ def _notPortedConfig(config, args):
         todo.append("calcSelFn / -S (ROADMAP.md queue 1, item 9)")
     if args.sourceInjectionTest or config.parDict.get("sourceInjectionTest"):
         todo.append("source injection / -I (ROADMAP.md queue 1, item 10)")
-    if config.parDict.get("stitchTiles") and len(config.tileNames) > 1:
-        todo.append("stitchTiles with several tiles (ROADMAP.md queue 1, "
-                    "item 11)")
     return todo
 
 
@@ -113,6 +111,13 @@ def main(argv=None):
 
     print("... selection-function epilogue (makeRMSTables, getFRelWeights, "
           "tidyUp) not ported yet (ROADMAP.md queue 1, item 9): skipped")
+
+    if config.parDict.get("stitchTiles") and len(config.tileNames) > 1:
+        with GLOBAL_TIMER.stage("stitchTiles"):
+            maps.stitchTiles(config)
+    if config.parDict.get("makeQuickLookMaps"):
+        with GLOBAL_TIMER.stage("makeQuickLookMaps"):
+            maps.makeQuickLookMaps(config)
 
     print(GLOBAL_TIMER.report())
     with open(os.path.join(config.diagnosticsDir, "timings.json"),

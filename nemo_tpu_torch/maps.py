@@ -1,9 +1,10 @@
 """Map and tile runtime: lazy tile loading and per-tile preprocessing.
 
-Port of the host side of ``nemo_tpu/maps.py`` that the one-tile cluster
-search runs: :class:`MapDict` (tile loading and the ``preprocess`` chain),
-:class:`MapDictList`, :class:`TileDict`, and the tiling helpers that
-:mod:`startup` needs.  All of it is host numpy; the preprocess steps that
+Port of the host side of ``nemo_tpu/maps.py`` that the cluster search
+runs: :class:`MapDict` (tile loading and the ``preprocess`` chain),
+:class:`MapDictList`, :class:`TileDict`, the tiling helpers that
+:mod:`startup` needs, and the stitched and quick-look maps of a tiled
+run.  All of it is host numpy; the preprocess steps that
 run device work in the JAX package (survey-mask apodisation, the CMB
 substitution of contamination sims, source injection, beam convolution,
 model subtraction) raise NotImplementedError naming their ROADMAP item.
@@ -556,3 +557,121 @@ def subtractBackground(data, wcs, RADeg="centre", decDeg="centre",
     """High-pass via difference of Gaussians."""
     return data - smoothMap(data, wcs, RADeg=RADeg, decDeg=decDeg,
                             smoothScaleDeg=smoothScaleDeg, policy=policy)
+
+
+# -----------------------------------------------------------------------------
+def shrinkWCS(origShape, origWCS, scaleFactor):
+    """Downsampled (shape, WCS) for quick-look images (``nemo/maps.py:
+    820-850``): scaleFactor 0.25 gives quarter resolution."""
+    ny, nx = origShape
+    outShape = (int(round(ny * scaleFactor)), int(round(nx * scaleFactor)))
+    hdr = origWCS.header.copy()
+    for ax in (1, 2):
+        if "CDELT%d" % ax in hdr:
+            hdr["CDELT%d" % ax] = hdr["CDELT%d" % ax] / scaleFactor
+        if "CD%d_%d" % (ax, ax) in hdr:
+            hdr["CD%d_%d" % (ax, ax)] = hdr["CD%d_%d" % (ax, ax)] \
+                / scaleFactor
+        if "CRPIX%d" % ax in hdr:
+            hdr["CRPIX%d" % ax] = (hdr["CRPIX%d" % ax] - 0.5) \
+                * scaleFactor + 0.5
+    hdr["NAXIS1"] = outShape[1]
+    hdr["NAXIS2"] = outShape[0]
+    return outShape, WCS(hdr)
+
+
+def makeQuickLookMaps(config, scaleFactor=0.25):
+    """Quarter-resolution stitched S/N maps for eyeballing tiled runs
+    (``makeQuickLookMaps`` config option)."""
+    import glob
+    if config.origWCS is None:
+        return
+    outShape, outWCS = shrinkWCS(config.origShape, config.origWCS,
+                                 scaleFactor)
+    for f in config.parDict["mapFilters"]:
+        pattern = os.path.join(config.filteredMapsDir, "*",
+                               "%s#*_SNMap.fits" % f["label"])
+        if not glob.glob(pattern):
+            continue
+        outFileName = os.path.join(
+            config.filteredMapsDir, "quicklook_%s_SNMap.fits" % f["label"])
+        stitchTilesQuickLook(pattern, outFileName, outWCS, outShape)
+
+
+def stitchTilesQuickLook(filePattern, outFileName, outWCS, outShape,
+                         fluxRescale=1.0):
+    """Paste tile FITS files into one big map (``maps.py:1027-1080``)."""
+    import glob
+    outData = np.zeros(outShape)
+    inFiles = glob.glob(filePattern)
+    if len(inFiles) < 1:
+        return None
+    for f in inFiles:
+        d, header = nfits.read_image(f)
+        inWCS = WCS(header)
+        coords = inWCS.pix2wcs(np.zeros(d.shape[0]), np.arange(d.shape[0]))
+        yOut = np.round(outWCS.wcs2pix(coords[:, 0], coords[:, 1])[:, 1]
+                        ).astype(int)
+        coordsx = inWCS.pix2wcs(np.arange(d.shape[1]), np.zeros(d.shape[1]))
+        xOut = np.round(outWCS.wcs2pix(coordsx[:, 0], coordsx[:, 1])[:, 0]
+                        ).astype(int)
+        ok_y = (yOut >= 0) & (yOut < outShape[0])
+        ok_x = (xOut >= 0) & (xOut < outShape[1])
+        outData[np.ix_(yOut[ok_y], xOut[ok_x])] += d[np.ix_(ok_y, ok_x)]
+    nfits.write_image(outFileName, outData * fluxRescale, outWCS.header,
+                      compressionType="RICE_1")
+    return outData
+
+
+def stitchTiles(config):
+    """Stitch per-tile filtered maps, S/N maps and RMS maps into full-size
+    maps (``maps.py:958-1024``).  Only filters with saveFilteredMaps: True
+    have tiles on disk."""
+    from . import completeness
+
+    stitchSpecs = [
+        (os.path.join(config.filteredMapsDir, "{tile}",
+                      "{label}#{tile}_filteredMap.fits"),
+         os.path.join(config.filteredMapsDir,
+                      "stitched_{label}_filteredMap.fits"), None),
+        (os.path.join(config.filteredMapsDir, "{tile}",
+                      "{label}#{tile}_SNMap.fits"),
+         os.path.join(config.filteredMapsDir,
+                      "stitched_{label}_SNMap.fits"), None),
+        (os.path.join(config.selFnDir, "{tile}",
+                      "RMSMap_{label}#{tile}.fits"),
+         os.path.join(config.selFnDir, "stitched_RMSMap_{label}.fits"),
+         "RICE_1"),
+    ]
+    if config.origWCS is None:
+        return
+    for filterDict in config.parDict["mapFilters"]:
+        if not filterDict["params"].get("saveFilteredMaps"):
+            continue
+        label = filterDict["label"]
+        for pattern, outPattern, compression in stitchSpecs:
+            outFileName = outPattern.format(label=label)
+            if os.path.exists(outFileName):
+                continue
+            d = np.zeros((config.origWCS.naxis2, config.origWCS.naxis1))
+            found = False
+            for tileName in config.tileCoordsDict:
+                f = pattern.format(tile=tileName, label=label)
+                if not os.path.exists(f):
+                    continue
+                tileData, _ = nfits.read_image(f)
+                try:
+                    areaMask, _ = completeness.loadAreaMask(
+                        tileName, config.selFnDir)
+                except FileNotFoundError:
+                    areaMask = np.ones(tileData.shape)
+                minX, maxX, minY, maxY = \
+                    config.tileCoordsDict[tileName]["clippedSection"]
+                h = min(maxY - minY, tileData.shape[0])
+                w = min(maxX - minX, tileData.shape[1])
+                d[minY:minY + h, minX:minX + w] += \
+                    (areaMask[:h, :w] * tileData[:h, :w])
+                found = True
+            if found:
+                nfits.write_image(outFileName, d, config.origWCS.header,
+                                  compressionType=compression)

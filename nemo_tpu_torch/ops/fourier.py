@@ -124,3 +124,52 @@ def pad_to(m, shape):
 def crop_to(m, shape):
     """Crop the last two axes down to `shape` (inverse of pad_to)."""
     return m[..., :shape[0], :shape[1]]
+
+
+def _dft_phase(k, pos, n, rdtype):
+    """exp(2 pi i k pos / n) for integer (k, pos) tensors, with k * pos
+    reduced mod n in integers first: the phase argument then stays in
+    [0, 2 pi) instead of reaching ~2 pi n, so float32 keeps its digits (the
+    reduction is exact in real arithmetic)."""
+    arg = torch.remainder(k * pos, n).to(rdtype) * (2 * np.pi / n)
+    return torch.polar(torch.ones_like(arg), arg)
+
+
+def windowed_irfft2(G, y0, x0, ny, nx, wlen):
+    """``irfft2(G, s=(ny, nx))`` on the ``wlen x wlen`` window anchored at
+    integer offsets ``(y0, x0)``, without the full inverse transform: two
+    small complex matmuls against DFT basis vectors (backward
+    normalisation), with the Hermitian half grid's interior columns
+    counted twice.
+
+    Args:
+        G: (B..., F..., ny, nx//2+1) complex half-grid spectra.
+        y0, x0: python ints, or int tensors of shape (B...) (one window
+            origin per leading batch entry, broadcast over F...).
+        ny, nx: full-grid shape.
+        wlen: window size.
+    Returns:
+        (B..., F..., wlen, wlen) real window values.
+    """
+    nxh = G.shape[-1]
+    dev = G.device
+    rdtype = torch.float64 if G.dtype == torch.complex128 else torch.float32
+    y0 = torch.as_tensor(y0, dtype=torch.int64, device=dev)
+    x0 = torch.as_tensor(x0, dtype=torch.int64, device=dev)
+    ar = torch.arange(wlen, dtype=torch.int64, device=dev)
+    ys = y0[..., None] + ar                                   # (B..., w)
+    xs = x0[..., None] + ar
+    ky = torch.arange(ny, dtype=torch.int64, device=dev)
+    kx = torch.arange(nxh, dtype=torch.int64, device=dev)
+    wx = torch.where((kx == 0) | ((nx % 2 == 0) & (kx == nx // 2)),
+                     1.0, 2.0).to(rdtype)
+    ex = _dft_phase(kx[:, None], xs[..., None, :], nx, rdtype) \
+        * wx[:, None]                                         # (B.., nxh, w)
+    ey = _dft_phase(ky[:, None], ys[..., None, :], ny, rdtype)  # (B.., ny, w)
+    extra = G.ndim - 2 - y0.ndim        # the F... axes the origin spans
+    for _ in range(extra):
+        ex = ex[..., None, :, :]
+        ey = ey[..., None, :, :]
+    M1 = torch.matmul(G, ex.to(G.dtype))                     # (..., ny, w)
+    out = torch.matmul(ey.to(G.dtype).transpose(-1, -2), M1)  # (..., w, w)
+    return torch.real(out) / (ny * nx)

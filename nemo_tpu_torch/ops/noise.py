@@ -129,6 +129,7 @@ def rms_cells(padded, starts_y, starts_x, lens_y, lens_x, window):
 
 
 rms_cells.launches = 0
+rms_cells.largest_nT = 0     # largest tile batch a launch has seen
 
 
 def _declare(lib):
@@ -163,6 +164,7 @@ def _rms_cells_cuda(padded, starts_y, starts_x, lens_y, lens_x, window):
         raise RuntimeError("rms_cells kernel launch failed: CUDA error %d"
                            % err)
     rms_cells.launches += 1
+    rms_cells.largest_nT = max(rms_cells.largest_nT, nT)
     return out
 
 

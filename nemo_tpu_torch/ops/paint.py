@@ -63,6 +63,46 @@ def _table_bucket(n):
     return size
 
 
+def paint_templates_centered_batch(shape, pix_scales_rad, tables,
+                                   center=None, device=None,
+                                   dtype=torch.float64):
+    """Paint a batch of centred radial profiles in one call: the distance
+    grid is computed once and every table (padded to a common bucket, as
+    :func:`paint_template_centered` pads one) is interpolated on it.
+
+    Args:
+        shape: (ny, nx).
+        pix_scales_rad: (dy, dx) radians/pixel at tile centre.
+        tables: sequence of (r_prof, v_prof) pairs (radians -> amplitude;
+            zero outside the table).
+        center: optional float (cy, cx); default (ny/2, nx/2).
+    Returns:
+        (len(tables), ny, nx) tensor on ``device`` in ``dtype``; each plane
+        equals :func:`paint_template_centered` of its table.
+    """
+    ny, nx = int(shape[0]), int(shape[1])
+    if center is None:
+        center = (ny / 2.0, nx / 2.0)
+    npDtype = np.dtype(np.float64 if dtype == torch.float64 else np.float32)
+    size = _table_bucket(max(len(r) for r, _ in tables))
+    padded = [_pad_table(np.asarray(r), np.asarray(v), npDtype, size=size)
+              for r, v in tables]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    scales = t(np.asarray(pix_scales_rad, dtype=npDtype))
+    c = t(np.asarray(center, dtype=npDtype))
+    yy = (torch.arange(ny, dtype=dtype, device=device) - c[0]) * scales[0]
+    xx = (torch.arange(nx, dtype=dtype, device=device) - c[1]) * scales[1]
+    r = torch.sqrt(yy[:, None] ** 2 + xx[None, :] ** 2)
+    out = torch.empty((len(tables), ny, nx), dtype=dtype, device=device)
+    for i, (rp, vp) in enumerate(padded):
+        vp = t(vp)
+        out[i] = interp(r, t(rp), vp, left=vp[0], right=0.0)
+    return out
+
+
 def paint_template_centered(shape, pix_scales_rad, r_prof, v_prof,
                             center=None, device=None, dtype=torch.float64):
     """Paint one unit-amplitude radial profile centred on the map.

@@ -1,10 +1,12 @@
 """Pipeline orchestration: filter + detect -> optimal catalog.
 
-Port of the host (per-tile) loop of ``nemo_tpu/pipelines.py``: each tile's
-filters are built and applied on ``config.policy``'s device, then objects
-are detected and measured on the host.  The batched multi-tile engine
-(``useDeviceBatching: true``) and the cached-RMS / cached-filtered-map
-reruns are not ported yet.
+Port of the tile loop of ``nemo_tpu/pipelines.py``.  Per tile, each
+filter is built and applied on ``config.policy``'s device and objects are
+detected and measured on the host; with ``useDeviceBatching: true`` the
+batched engine (:mod:`.parallel.engine`) filters chunks of tiles in one
+device call per (chunk, filter), optionally detecting objects on the
+device too, and streams each result into the same catalog stage.  The
+cached-RMS / cached-filtered-map reruns are not ported yet.
 """
 
 import os
@@ -76,11 +78,6 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                                verbose=True, writeAreaMask=False,
                                writeFlagMask=False):
     """Single-pass tile x filter loop."""
-    if config.parDict.get("useDeviceBatching"):
-        raise NotImplementedError(
-            "useDeviceBatching: true (the batched multi-tile engine) is not "
-            "ported yet (ROADMAP.md queue 1, item 8: slice 2, the batched "
-            "step on one GPU); set it to false")
     if useCachedRMSMap or useCachedFilteredMaps:
         raise NotImplementedError(
             "cached RMS-map / filtered-map reruns need the completeness "
@@ -124,6 +121,30 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
         else:
             DS9RegionsPath = None
 
+        if "deviceDetections" in filteredMapDict:
+            # device detection: segmentation, statistics and the sub-pixel
+            # S/N + flux reads ran on the device; the catalog comes from
+            # those O(K) values
+            with GLOBAL_TIMER.stage("findObjects"):
+                catalog = photometry.catalogFromDeviceDetections(
+                    filteredMapDict,
+                    threshold=config.parDict["thresholdSigma"],
+                    minObjPix=config.parDict["minObjPix"],
+                    findCenterOfMass=config.parDict["findCenterOfMass"],
+                    objIdent=config.parDict["objIdent"],
+                    longNames=config.parDict["longNames"],
+                    useInterpolator=config.parDict["useInterpolator"],
+                    DS9RegionsPath=DS9RegionsPath)
+            if writeAreaMask and tileName not in areaMaskDict \
+                    and filteredMapDict.get("surveyMask") is not None:
+                areaMaskDict[tileName] = np.array(
+                    filteredMapDict["surveyMask"], dtype=np.uint8)
+            if writeFlagMask and tileName not in flagMaskDict:
+                flagMaskDict[tileName] = np.asarray(
+                    filteredMapDict["flagMask"], dtype=np.uint8)
+            catalogDict[label]["catalog"] = catalog
+            return
+
         if f["params"].get("saveFilteredMaps"):
             filteredMapFileName = os.path.join(
                 filteredMapsDir, tileName, "%s_filteredMap.fits" % label)
@@ -144,7 +165,10 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
         if f["label"] == photFilter:
             photMaps[tileName] = {"SNMap": filteredMapDict["SNMap"],
                                   "data": filteredMapDict["data"]}
-        photFilteredMapDict = photMaps.get(tileName)
+        # a device-detection overflow tile carries the reference filter's
+        # maps with it (parallel/engine.py overflow fallback)
+        photFilteredMapDict = photMaps.get(tileName) \
+            or filteredMapDict.get("photMapsDict")
 
         if config.parDict.get("forcedPhotometryCatalog"):
             catalog = photometry.makeForcedPhotometryCatalog(
@@ -189,10 +213,18 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 invertMap=invertMap)
         catalogDict[label]["catalog"] = catalog
 
+    if config.parDict.get("useDeviceBatching"):
+        _runBatched(config, filtersList, catalogDict, photMaps,
+                    _processFilteredMap, diagnosticsDir, useCachedFilters,
+                    measureFluxes, invertMap, verbose)
+
     for tileName in config.tileNames:
         if verbose:
             print(">>> Making filtered maps - tileName = %s" % tileName)
         for f in filtersList:
+            label = f["label"] + "#" + tileName
+            if "catalog" in catalogDict.get(label, {}):
+                continue    # already streamed through the batched engine
             with GLOBAL_TIMER.stage("filterMaps"):
                 filteredMapDict = filters.filterMaps(
                     config.unfilteredMapsDictList, f, tileName,
@@ -228,3 +260,98 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 config.origWCS, compressionType="PLIO_1")
 
     return optimalCatalog
+
+
+def _runBatched(config, filtersList, catalogDict, photMaps,
+                processFilteredMap, diagnosticsDir, useCachedFilters,
+                measureFluxes, invertMap, verbose):
+    """The ``useDeviceBatching`` branch: every eligible filter runs over
+    all tiles through the batched engine, and each result streams through
+    ``processFilteredMap`` as its chunk completes.  Host-only filters of a
+    mixed bank run tile-locally inside the sink, so peak memory stays one
+    chunk whatever the bank."""
+    from .parallel import engine as batch_engine
+
+    if useCachedFilters:
+        # cached-filter reruns reload the saved filters (the host engine
+        # does); the batched given-filter step is not ported yet
+        if verbose:
+            print("... useCachedFilters: every filter runs on the per-tile "
+                  "engine (the batched cached-filter step is not ported "
+                  "yet, ROADMAP.md queue 1, item 8)", flush=True)
+        return
+    eligible = [f for f in filtersList
+                if batch_engine.eligibleForBatch(f, config.parDict)]
+    if not eligible:
+        return
+    eligibleLabels = set(f["label"] for f in eligible)
+    fullStream = eligibleLabels == set(f["label"] for f in filtersList)
+    pendingTiles = {}
+
+    def consume(label, tileName, res):
+        pendingTiles.setdefault(tileName, {})[label] = res
+        if not eligibleLabels <= set(pendingTiles[tileName]):
+            return True
+        byLabel = pendingTiles.pop(tileName)
+        # filtersList is photFilter-first, so the fixed_ reference maps
+        # exist before any other filter's fluxes are measured
+        for f in filtersList:
+            if f["label"] in byLabel:
+                processFilteredMap(f, tileName, byLabel.pop(f["label"]))
+            elif f["label"] not in eligibleLabels:
+                # host-only filter of a mixed bank: run it now, tile-local
+                with GLOBAL_TIMER.stage("filterMaps"):
+                    fmd = filters.filterMaps(
+                        config.unfilteredMapsDictList, f, tileName,
+                        diagnosticsDir=diagnosticsDir,
+                        selFnDir=config.selFnDir, verbose=verbose,
+                        undoPixelWindow=True, policy=config.policy)
+                processFilteredMap(f, tileName, fmd)
+                del fmd
+        photMaps.pop(tileName, None)
+        return True
+
+    # Device detection needs the whole bank batched (the fixed_ reads use
+    # the reference filter's device-resident maps) and the default
+    # catalog stage; "auto" = on when the policy device is a GPU (the JAX
+    # package: on the TPU).
+    dd = config.parDict.get("useDeviceDetection", "auto")
+    reasons = []
+    if not ((dd is True) or (dd == "auto"
+                             and config.policy.device.type == "cuda")):
+        reasons.append("useDeviceDetection=%r on %s"
+                       % (dd, config.policy.device.type))
+    if not fullStream:
+        reasons.append("mixed filter bank (host-only labels present)")
+    if not measureFluxes:
+        reasons.append("measureFluxes off")
+    for key, on in (("forced photometry",
+                     config.parDict.get("forcedPhotometryCatalog")),
+                    ("inverted map", invertMap),
+                    ("removeRings", config.parDict["removeRings"]),
+                    ("measureShapes", config.parDict["measureShapes"])):
+        if on:
+            reasons.append(key)
+    detectParams = None
+    if not reasons:
+        detectParams = (
+            float(config.parDict["thresholdSigma"]),
+            # a DR5-sized tile carries ~70-100 noise peaks above 4 sigma;
+            # 512 keeps real tiles inside the budget, and a tile over it
+            # falls back to host detection
+            int(config.parDict.get("deviceDetectionMaxObjects", 512)),
+            128,
+            bool(config.parDict["findCenterOfMass"]),
+            16)
+    if verbose:
+        print("... device detection: %s" % (
+            "ON (O(K) downloads per tile)" if detectParams is not None
+            else "OFF (%s)" % "; ".join(reasons)), flush=True)
+
+    # one multi-filter call: each tile is loaded and preprocessed once
+    # for the whole bank
+    with GLOBAL_TIMER.stage("filterMapsBatched"):
+        batch_engine.batchFilterTilesMulti(
+            config, eligible, undoPixelWindow=True, verbose=verbose,
+            consume=consume, detectParams=detectParams,
+            diagnosticsDir=diagnosticsDir)

@@ -139,6 +139,17 @@ def parseConfigDict(parDict):
     if "stitchTiles" not in parDict:
         parDict["stitchTiles"] = bool(parDict["useTiling"])
 
+    # batched-engine options (parallel/engine.py); "auto" = on with a GPU
+    for key in ("useDeviceDetection", "bankPaintBatch"):
+        value = parDict.get(key, "auto")
+        if not (isinstance(value, bool) or value == "auto"):
+            raise ValueError("%s must be true, false or 'auto'" % key)
+    for key in ("deviceBatchSize", "deviceDetectionMaxObjects"):
+        if key in parDict and (isinstance(parDict[key], bool)
+                               or not isinstance(parDict[key], int)
+                               or parDict[key] < 1):
+            raise ValueError("%s must be a positive integer" % key)
+
     for filtDict in parDict["mapFilters"]:
         filtDict["params"]["GNFWParams"] = parDict["GNFWParams"]
 

@@ -50,6 +50,7 @@ for name in names:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("IMPORTED", len(names))
+print("NAMES", " ".join(sorted(names)))
 print("HITS", sorted(set(hits)))
 print("LEAKED", leaked)
 """
@@ -60,8 +61,14 @@ def test_port_imports_no_jax_and_no_nemo_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
-                 if line.split(" ", 1)[0] in ("IMPORTED", "HITS", "LEAKED"))
+                 if line.split(" ", 1)[0] in ("IMPORTED", "HITS", "LEAKED",
+                                              "NAMES"))
     assert int(lines["IMPORTED"]) >= 20
+    # the batched engine and the device detection are covered
+    for mod in ("nemo_tpu_torch.parallel.engine",
+                "nemo_tpu_torch.parallel.distribute",
+                "nemo_tpu_torch.ops.detect", "nemo_tpu_torch.completeness"):
+        assert mod in lines["NAMES"].split(), mod
     assert lines["HITS"] == "[]"
     assert lines["LEAKED"] == "[]"
 
