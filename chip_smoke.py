@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout, holds it against its plain
-torch version at the main path's shapes, then runs the one-tile cluster
+Builds the port's CUDA kernels from the checkout, holds each against its
+plain torch version at the main paths' shapes, then runs the one-tile cluster
 search (nemo_tpu_torch: config -> preprocess -> matched filters -> grid
 RMS / S/N -> detection -> photometry -> optimal catalog) on a seeded
 two-band 896 x 1536 tile on the card in float32, and again on the CPU in
@@ -13,9 +13,16 @@ float64, and checks that both recover the injected clusters alike.
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
   1 card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2 build: nvcc build of nemo_tpu_torch/csrc/rms_cells.cu, seconds;
-  3 kernel vs plain version on the card (f64 rtol 1e-10, f32 rtol 1e-4),
-    timed with CUDA events in the order plain, kernel, kernel, plain;
+  2 build: nvcc builds of nemo_tpu_torch/csrc/rms_cells.cu and
+    label_components.cu, started together, seconds;
+  3 kernels vs plain versions on the card, timed with CUDA events in the
+    order plain, kernel(s), kernel(s), plain, each beside its bound:
+    rms_cells' staged and streaming variants (f64 rtol 1e-10, f32 rtol
+    1e-4 but for borderline clips, see check_cells) at nT = 1 (the host
+    path) and at the batched step's nT = 16 x 900 x 1536;
+    label_components bitwise at 16 x 900 x 1536 on an S/N
+    mask, an empty mask and a serpentine that splits at 128 passes, with
+    n_iter 128, 4000 and 37;
   4 inputs: seeded CMB + white noise + ~20 Arnaud clusters, written as
     FITS with beam files under _smoke_work/;
   5 the main path on the card (cuda, float32), with the kernel's launch
@@ -25,12 +32,12 @@ non-zero and prints no result):
     896 x 1536 by its tileDefinitions, ~20 clusters per tile, as FITS;
   8 the batched engine on the card (float32): the 16-scale Arnaud bank of
     examples/dr5-cluster-search.yml over one 16-tile chunk with device
-    detection, run cold and warm; rms_cells launches and the largest tile
-    batch it saw (16), plain calls (0), (tile, label) pairs on device
-    detection and overflowed, seconds by phase, peak device memory, and
-    the kernel against its plain version at the step's padded shape,
-    and one more warm batched run under torch.profiler: the card's busy
-    share and its largest device operations;
+    detection, run cold and warm; launches of both kernels (one each per
+    step, rms_cells in its staged variant, largest tile batch 16), plain
+    calls (0), (tile, label) pairs on device detection and overflowed,
+    seconds by phase, peak device memory, and one more warm batched run
+    under torch.profiler: the card's busy share and its largest device
+    operations;
   9 batched against the per-tile host engine on the card, same 16 tiles,
     the photometry filter and one other scale.
 The last lines are the kernels' JSON record, the card's name and power
@@ -77,6 +84,25 @@ def nvidia_smi():
 
 # -- phase 3 -------------------------------------------------------------------
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3 bytes/s,
+# and operations/s outside the tensor cores by type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "int32": 67e12}
+# operations per window pixel and stage of the clipped RMS: |v|, compare,
+# add (sweep 1; the count is one more integer add), subtract, multiply, add
+# (sweep 2)
+RMS_OPS_PER_PIXEL_STAGE = 7
+# operations per mask pixel and Jacobi pass: four minima and a compare
+LABEL_OPS_PER_PIXEL_PASS = 5
+
+
+def bound(nbytes, ops, optype):
+    """(least ms for the work, "bytes" or "operations")."""
+    tb = nbytes / HBM_BYTES_PER_S
+    to = ops / PEAK_OPS_PER_S[optype]
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
 def time_ms(fn, reps):
     import torch
     fn()
@@ -91,69 +117,233 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_case(noise, padded, tabs, window, rtol, reps):
-    """Kernel vs plain on the card: (max_abs_err, kernel ms, plain ms)."""
-    import torch
-    got = noise.rms_cells(padded, *tabs, window)
-    ref = noise._rms_cells_plain(padded, *tabs, window)
-    torch.cuda.synchronize()
-    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+def time_turns(fns, reps):
+    """Mean ms of each named function, timed in turns: the names in order
+    and then in reverse (plain, kernel, kernel, plain)."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for k in names + names[::-1]:
+        times[k].append(time_ms(fns[k], reps[k]))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def check_cells(got, ref, rtol, nGood, name):
+    """Every cell within ``rtol`` of the plain version, except, in float32,
+    cells whose difference one borderline pixel explains: a pixel at the
+    clip threshold (~3 sigma) kept by one version and clipped by the other
+    moves a cell of n good pixels by ~4/n of its RMS (the two versions sum
+    in different orders, so their thresholds differ in the last bits).
+    Those cells are allowed up to 5/n, at most one in a thousand; returns
+    their count."""
     if got.shape != ref.shape or not np.all(np.isfinite(got)):
-        raise RuntimeError("kernel output malformed")
-    np.testing.assert_allclose(got, ref, rtol=rtol, atol=0)
-    err = float(np.max(np.abs(got - ref)))
-    plain1 = time_ms(lambda: noise._rms_cells_plain(padded, *tabs, window),
-                     reps)
-    kern1 = time_ms(lambda: noise.rms_cells(padded, *tabs, window), reps)
-    kern2 = time_ms(lambda: noise.rms_cells(padded, *tabs, window), reps)
-    plain2 = time_ms(lambda: noise._rms_cells_plain(padded, *tabs, window),
-                     reps)
-    return err, (kern1 + kern2) / 2, (plain1 + plain2) / 2
+        raise RuntimeError("rms_cells %s output malformed" % name)
+    off = ~np.isclose(got, ref, rtol=rtol, atol=0)
+    if got.dtype == np.float32:
+        flip = np.abs(got - ref) <= 5.0 * np.abs(ref) / np.maximum(nGood, 1)
+        if np.any(off & ~flip) or off.sum() > max(1, got.size // 1000):
+            np.testing.assert_allclose(got, ref, rtol=rtol, atol=0,
+                                       err_msg=name)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=0, err_msg=name)
+    return int(off.sum())
 
 
-def filtered_like_maps(nT):
+def clip_stages(noise, windows, valid, n_iter=10):
+    """Stages each cell's clip needs (the seed, then iterations up to the
+    first whose threshold repeats the last one's: the staged variant stops
+    there, its result final), by the plain version's arithmetic."""
+    import torch
+    mean, rms, n0 = noise._masked_mean_std(windows, valid)
+    stages = torch.ones_like(n0)
+    done = n0 == 0                      # an empty cell stops at its seed
+    last = None
+    for _ in range(n_iter):
+        thr = torch.abs(mean + 3.0 * rms)
+        if last is not None:
+            done |= thr == last
+        stages += (~done).to(stages.dtype)
+        last = thr
+        m = valid & (torch.abs(windows) < thr[:, None])
+        newMean, newRms, nm = noise._masked_mean_std(windows, m)
+        mean = torch.where(nm > 0, newMean, mean)
+        rms = torch.where(nm > 0, newRms, rms)
+    return stages
+
+
+def rms_case(noise, padded, tabs, window, rtol, reps, plainReps):
+    """Both variants of the kernel against the plain version on the card:
+    (max_abs_err by variant, borderline cells by variant and the cell
+    count, ms by name, bound ms, bound_by)."""
+    import torch
+    ref = noise._rms_cells_plain(padded, *tabs, window)
+    refNp = ref.cpu().numpy()
+    windows, valid = noise._gather_windows(padded, *tabs, window)
+    nGood = valid.sum(dim=1).reshape(refNp.shape).cpu().numpy()
+    stages = clip_stages(noise, windows, valid).cpu().numpy()
+    del windows, valid
+    errs, flips = {}, {"cells": int(refNp.size)}
+    fns = {"plain": lambda: noise._rms_cells_plain(padded, *tabs, window)}
+    for variant in ("staged", "streaming"):
+        got = noise._rms_cells_cuda(padded, *tabs, window, variant=variant)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        flips[variant] = check_cells(got, refNp, rtol, nGood, variant)
+        errs[variant] = float(np.max(np.abs(got - refNp)))
+        fns[variant] = (lambda v=variant: noise._rms_cells_cuda(
+            padded, *tabs, window, variant=v))
+    ms = time_turns(fns, {"plain": plainReps, "staged": reps,
+                          "streaming": reps})
+    # work of this run's tables: each cell's clipped extent, every stage
+    nT, PY, PX = padded.shape
+    sy, sx, ly, lx = (t.cpu().numpy().astype(np.int64) for t in tabs)
+    h = np.minimum(np.minimum(ly, window[0]), PY - sy) - np.maximum(0, -sy)
+    w = np.minimum(np.minimum(lx, window[1]), PX - sx) - np.maximum(0, -sx)
+    pixelStages = int(np.sum(np.maximum(h, 0) * np.maximum(w, 0)
+                             * stages.reshape(h.shape)))
+    item = padded.element_size()
+    nbytes = padded.numel() * item + 4 * sy.size * 4 + sy.size * item
+    bms, by = bound(nbytes, RMS_OPS_PER_PIXEL_STAGE * pixelStages,
+                    str(padded.dtype).split(".")[-1])
+    flips["mean_stages"] = float(stages.mean())
+    return errs, flips, ms, bms, by
+
+
+def filtered_like_maps(nT, shape=SHAPE):
     """Seeded maps shaped like filtered tiles: noise with a masked (zero)
-    border and a zeroed corner block."""
+    border and a zeroed corner block, zero-padded to ``shape``."""
     rng = np.random.default_rng(SEED)
-    m = rng.normal(0, 1e-5, (nT,) + SHAPE)
-    m[:, :20] = 0
-    m[:, :, -20:] = 0
-    m[:, 300:420, 500:700] = 0
+    m = np.zeros((nT,) + tuple(shape))
+    t = rng.normal(0, 1e-5, (nT,) + SHAPE)
+    t[:, :20] = 0
+    t[:, :, -20:] = 0
+    t[:, 300:420, 500:700] = 0
+    m[:, :SHAPE[0], :SHAPE[1]] = t
     return m
 
 
-def check_kernel(noise):
+def step_pad():
+    from nemo_tpu_torch.ops import fourier
+    return (fourier.good_fft_size(SHAPE[0]), fourier.good_fft_size(SHAPE[1]))
+
+
+def check_rms(noise, card):
+    """The kernel's two variants against the plain version: the host
+    path's layout (nT = 1, 896 x 1536) and the batched step's (nT = 16,
+    per-tile cells on the padded 900 x 1536), float64 (rtol 1e-10) and
+    float32 (rtol 1e-4: float32 may flip one borderline clip)."""
     import torch
     dev = torch.device("cuda")
     results = {}
     ny, nx = SHAPE
-    # nT = 1, the host path's layout (grid_rms_map)
     ov, ye, xe, window, tables = noise._grid_geometry(ny, nx, GRID_PIX, None)
-    m1 = filtered_like_maps(1)
+    pad = step_pad()
+    meta = noise.cell_meta_batch([SHAPE] * N_TILES_META, pad, GRID_PIX)
+    mtabs, mwindow, mpad = noise.meta_cell_tables(meta, GRID_PIX, pad,
+                                                  N_TILES_META, dev)
     for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        dname = str(dtype).split(".")[-1]
         padded = torch.nn.functional.pad(
-            torch.as_tensor(m1, dtype=dtype, device=dev),
+            torch.as_tensor(filtered_like_maps(1), dtype=dtype, device=dev),
             (ov, window[1], ov, window[0])).contiguous()
         tabs = [noise._int32_table(a, 1, dev) for a in tables]
-        results[("nT1", dtype)] = kernel_case(noise, padded, tabs, window,
-                                              rtol, reps=20)
-    # nT = 16 on the same tile, the batched (meta) layout
-    meta = noise.cell_meta_batch([SHAPE] * N_TILES_META, SHAPE, GRID_PIX)
-    Wy, Wx, ov = noise.meta_window(GRID_PIX, SHAPE)
-    m16 = filtered_like_maps(N_TILES_META)
-    tabs = [noise._int32_table(a, N_TILES_META, dev) for a in (
-        meta["startsY"], meta["startsX"],
-        np.where(meta["lensY"] > 0, meta["lensY"] + 2 * ov, 0),
-        np.where(meta["lensX"] > 0, meta["lensX"] + 2 * ov, 0))]
-    for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        results[("nT1", dname)] = rms_case(noise, padded, tabs, window,
+                                           rtol, reps=20, plainReps=5)
         padded = torch.nn.functional.pad(
-            torch.as_tensor(m16, dtype=dtype, device=dev),
-            (ov, Wx, ov, Wy)).contiguous()
-        results[("nT16", dtype)] = kernel_case(noise, padded, tabs,
-                                               (Wy, Wx), rtol, reps=3)
+            torch.as_tensor(filtered_like_maps(N_TILES_META, pad),
+                            dtype=dtype, device=dev), mpad).contiguous()
+        results[("step", dname)] = rms_case(noise, padded, mtabs, mwindow,
+                                            rtol, reps=10, plainReps=2)
         del padded
     torch.cuda.empty_cache()
+    for (layout, dname), (errs, flips, ms, bms, by) in sorted(
+            results.items()):
+        phase(3, "rms_cells %s %s (window %s): max_abs_err staged %.3e "
+              "streaming %.3e, borderline-clip cells %d and %d of %d; "
+              "%.2f of 11 stages a cell; staged %.4f ms, streaming %.4f ms, "
+              "plain %.4f ms; bound %.4f ms (%s), staged at %.1f%% of it (%s)"
+              % (layout, dname, mwindow if layout == "step" else window,
+                 errs["staged"], errs["streaming"], flips["staged"],
+                 flips["streaming"], flips["cells"], flips["mean_stages"],
+                 ms["staged"],
+                 ms["streaming"], ms["plain"], bms, by,
+                 100 * bms / ms["staged"], card))
     return results
+
+
+def label_masks(T, shape, seed=SEED + 3):
+    """(T, ny, nx) bool masks on the card: an S/N-like map (beam-smoothed
+    white noise at unit rms plus 20 compact sources a tile of S/N 5-15)
+    above 4, an empty mask, and a one-pixel serpentine through every tile,
+    far longer than 128 passes, over the S/N mask."""
+    import torch
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    white = torch.as_tensor(rng.standard_normal((T,) + tuple(shape),
+                                                dtype=np.float32), device=dev)
+    ky = torch.fft.fftfreq(shape[0], device=dev)[:, None]
+    kx = torch.fft.rfftfreq(shape[1], device=dev)[None, :]
+    beam = torch.exp(-2 * (np.pi * 1.5) ** 2 * (ky ** 2 + kx ** 2))
+    sn = torch.fft.irfft2(torch.fft.rfft2(white) * beam, s=tuple(shape))
+    sn = sn / sn.std()
+    yy = torch.arange(shape[0], device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(shape[1], device=dev, dtype=torch.float32)[None, :]
+    for t in range(T):
+        for y, x, a in zip(rng.uniform(20, shape[0] - 20, 20),
+                           rng.uniform(20, shape[1] - 20, 20),
+                           rng.uniform(5, 15, 20)):
+            sn[t] += float(a) * torch.exp(-((yy - y) ** 2 + (xx - x) ** 2)
+                                          / (2 * 3.0 ** 2))
+    snake = torch.zeros((T,) + tuple(shape), dtype=torch.bool, device=dev)
+    for k, r in enumerate(range(1, shape[0] - 1, 4)):
+        snake[:, r, 1:shape[1] - 1] = True
+        col = shape[1] - 2 if k % 2 == 0 else 1
+        snake[:, r:min(r + 5, shape[0] - 1), col] = True
+    sig = sn > 4.0
+    return {"sn": sig, "empty": torch.zeros_like(sig), "snake": snake | sig}
+
+
+def check_labels(detect, card):
+    """The labelling kernel against its plain version, bitwise, at the
+    batched step's 16 x 900 x 1536 on three masks and n_iter 128, 4000 and
+    37; timed on the S/N mask at 128 passes.  Returns (max abs error, ms
+    by name, bound ms, bound_by)."""
+    import torch
+    masks = label_masks(N_TILES_META, step_pad())
+    err = 0
+    for name, mask in masks.items():
+        for nIter in (128, 4000, 37):
+            got = detect.label_components_batch(mask, n_iter=nIter)
+            ref = detect._label_components_plain(mask, nIter)
+            if got.dtype == torch.int32 and got.shape == ref.shape:
+                err = max(err, int((got - ref).abs().max()))
+            if got.dtype != torch.int32 or not torch.equal(got, ref):
+                raise RuntimeError("label kernel differs from the plain "
+                                   "version: %s mask, n_iter %d"
+                                   % (name, nIter))
+            if name == "snake" and nIter == 128:
+                path = mask[0] & ~masks["sn"][0]
+                if len(torch.unique(got[0][path])) < 2:
+                    raise RuntimeError("the serpentine did not split at "
+                                       "128 passes")
+    mask = masks["sn"]
+    ms = time_turns({
+        "plain": lambda: detect._label_components_plain(mask, 128),
+        "kernel": lambda: detect.label_components_batch(mask, n_iter=128)},
+        {"plain": 3, "kernel": 20})
+    nSig = int(mask.sum())
+    bms, by = bound(mask.numel() * (1 + 4),
+                    LABEL_OPS_PER_PIXEL_PASS * 128 * nSig, "int32")
+    share = nSig / mask.numel()
+    phase(3, "label_components 16 x %d x %d: bitwise equal to the plain "
+          "version on the S/N, empty and serpentine masks at n_iter 128, "
+          "4000, 37; S/N mask (%.3f%% significant) at 128 passes: kernel "
+          "%.4f ms, plain %.4f ms; bound %.4f ms (%s), kernel at %.1f%% of "
+          "it (%s)" % (mask.shape[1], mask.shape[2], 100 * share,
+                       ms["kernel"], ms["plain"], bms, by,
+                       100 * bms / ms["kernel"], card))
+    del masks, mask
+    torch.cuda.empty_cache()
+    return err, ms, bms, by
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -438,16 +628,32 @@ def chunk_budget(outDir):
     return out
 
 
-def batched_run(configDict, outName, noise, device="cuda"):
-    """One batched search with the kernel counters set to 0 just before it
-    and read just after; returns (catalog, seconds, budget, launches,
-    largest nT, plain calls)."""
+def reset_counts(noise, detect):
+    """Set every kernel launch count and plain-version call count to 0."""
     noise.rms_cells.launches = 0
     noise.rms_cells.largest_nT = 0
+    noise.rms_cells.variant_launches.update(staged=0, streaming=0)
     noise._rms_cells_plain.calls = 0
+    detect.label_components_batch.launches = 0
+    detect._label_components_plain.calls = 0
+
+
+def read_counts(noise, detect):
+    return {"rms_cells": noise.rms_cells.launches,
+            "largest_nT": noise.rms_cells.largest_nT,
+            "staged": noise.rms_cells.variant_launches["staged"],
+            "streaming": noise.rms_cells.variant_launches["streaming"],
+            "rms_plain": noise._rms_cells_plain.calls,
+            "labels": detect.label_components_batch.launches,
+            "labels_plain": detect._label_components_plain.calls}
+
+
+def batched_run(configDict, outName, noise, detect, device="cuda"):
+    """One batched search with the kernel counters set to 0 just before it
+    and read just after; returns (catalog, seconds, budget, counts)."""
+    reset_counts(noise, detect)
     cat, secs, _ = run_search(configDict, device, outName)
-    return (cat, secs, chunk_budget(outName), noise.rms_cells.launches,
-            noise.rms_cells.largest_nT, noise._rms_cells_plain.calls)
+    return cat, secs, chunk_budget(outName), read_counts(noise, detect)
 
 
 def fixed_snr(cat):
@@ -458,35 +664,12 @@ def fixed_snr(cat):
     return np.divide(y, err, out=np.zeros_like(y), where=err != 0)
 
 
-def step_kernel_case(noise, nT=16):
-    """rms_cells at the batched step's real padded shape (good_fft_size of
-    the 896 x 1536 tile, per-tile true-shape cells), float32."""
-    import torch
-    from nemo_tpu_torch.ops import fourier
-    dev = torch.device("cuda")
-    pad = (fourier.good_fft_size(SHAPE[0]), fourier.good_fft_size(SHAPE[1]))
-    meta = noise.cell_meta_batch([SHAPE] * nT, pad, GRID_PIX)
-    Wy, Wx, ov = noise.meta_window(GRID_PIX, pad)
-    m = np.zeros((nT,) + pad)
-    m[:, :SHAPE[0], :SHAPE[1]] = filtered_like_maps(nT)
-    padded = torch.nn.functional.pad(
-        torch.as_tensor(m, dtype=torch.float32, device=dev),
-        (ov, Wx, ov, Wy)).contiguous()
-    tabs = [noise._int32_table(a, nT, dev) for a in (
-        meta["startsY"], meta["startsX"],
-        np.where(meta["lensY"] > 0, meta["lensY"] + 2 * ov, 0),
-        np.where(meta["lensX"] > 0, meta["lensX"] + 2 * ov, 0))]
-    res = kernel_case(noise, padded, tabs, (Wy, Wx), 1e-4, reps=3)
-    del padded
-    torch.cuda.empty_cache()
-    return pad, res
-
-
 def profile_warm_run(configDict):
     """One more warm batched run under torch.profiler: (wall s, device
-    busy s, top device operations).  Busy time sums the device-side
-    events only (kernels and copies, on one stream, do not overlap); the
-    CPU ops that launched them carry the same time and are left out."""
+    busy s, top device operations, the port's own kernels). Busy time sums
+    the device-side events only (kernels and copies, on one stream, do not
+    overlap); the CPU ops that launched them carry the same time and are
+    left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -505,12 +688,16 @@ def profile_warm_run(configDict):
                 if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in onDevice) / 1e6
     top = sorted(onDevice, key=dev_us, reverse=True)[:10]
-    return wall, busy, [(e.key[:70], round(dev_us(e) / 1e3, 3), e.count)
-                        for e in top]
+    ours = [e for e in onDevice
+            if "label_kernel" in e.key or "rms_cells" in e.key]
+
+    def row(e):
+        return (e.key[:70], round(dev_us(e) / 1e3, 3), e.count)
+    return wall, busy, [row(e) for e in top], [row(e) for e in ours]
 
 
-def batched_phases(noise, card, device="cuda"):
-    """Phases 7 to 9; returns (runs by tag, nT = 16 kernel case)."""
+def batched_phases(noise, detect, card, device="cuda"):
+    """Phases 7 to 9; returns the batched runs by tag."""
     import torch
     onCard = device == "cuda"
     t0 = time.perf_counter()
@@ -526,16 +713,23 @@ def batched_phases(noise, card, device="cuda"):
     runs = {}
     for tag in ("cold", "warm"):
         runs[tag] = batched_run(surveyDict, "batched_%s" % tag, noise,
-                                device)
-        cat, secs, bud, nLaunch, largest, plain = runs[tag]
+                                detect, device)
+        cat, secs, bud, counts = runs[tag]
         nLabels = len(surveyDict["mapFilters"])
-        # on the card every step launches the kernel once over all 16
-        # tiles; a CPU rehearsal runs its plain version instead
-        want = (nLabels, nTiles, 0) if onCard else (0, 0, nLabels)
-        if (nLaunch, largest, plain) != want:
-            raise RuntimeError(
-                "batched %s run: rms_cells launches %d, largest nT %d, plain "
-                "calls %d (want %s)" % (tag, nLaunch, largest, plain, want))
+        # on the card every step launches each kernel once over all 16
+        # tiles, rms_cells in its staged variant; a CPU rehearsal runs the
+        # plain versions instead
+        if onCard:
+            want = {"rms_cells": nLabels, "largest_nT": nTiles,
+                    "staged": nLabels, "streaming": 0, "rms_plain": 0,
+                    "labels": nLabels, "labels_plain": 0}
+        else:
+            want = {"rms_cells": 0, "largest_nT": 0, "staged": 0,
+                    "streaming": 0, "rms_plain": nLabels, "labels": 0,
+                    "labels_plain": nLabels}
+        if counts != want:
+            raise RuntimeError("batched %s run: counts %s (want %s)"
+                               % (tag, counts, want))
         if bud["detectTiles"] + bud["overflowTiles"] != nTiles * nLabels \
                 or bud["detectLabels"] != nLabels or bud["nTiles"] != [nTiles]:
             raise RuntimeError("batched %s run: budget %s" % (tag, bud))
@@ -548,9 +742,9 @@ def batched_phases(noise, card, device="cuda"):
                   tag, nTiles, nLabels, device, secs, bud["stageWait"],
                   bud["upload"], bud["step"], bud["download"],
                   bud["consume"], bud["hostOther"], len(cat)))
-    cat, secs, bud, nLaunch, largest, plain = runs["warm"]
-    phase(8, "rms_cells launches %d, largest nT %d, plain calls %d; step "
-          "tensors on %s" % (nLaunch, largest, plain, bud["devices"]))
+    cat, secs, bud, counts = runs["warm"]
+    phase(8, "launches and plain calls of the warm run %s; step tensors on "
+          "%s" % (json.dumps(counts), bud["devices"]))
     phase(8, "(tile, label) pairs on device detection %d, overflowed to "
           "host detection %d" % (bud["detectTiles"], bud["overflowTiles"]))
     recovered = int(np.sum(match(surveyTruth, cat, 1.0) >= 0))
@@ -562,12 +756,6 @@ def batched_phases(noise, card, device="cuda"):
               secs / (nTiles * nLabels), peakMiB, card))
     if recovered < 0.9 * len(surveyTruth["y_c"]):
         raise RuntimeError("batched run recovered %d clusters" % recovered)
-    kernel16 = (float("nan"),) * 3
-    if onCard:
-        pad, kernel16 = step_kernel_case(noise)
-        phase(8, "rms_cells nT 16 at the step's padded shape %s f32: "
-              "max_abs_err %.3e, kernel %.4f ms, plain %.4f ms (%s)"
-              % ((pad,) + kernel16 + (card,)))
 
     pair = [PHOT, "Arnaud_M4e14_z0p2"]
     hostCat, hostSecs, _ = run_search(
@@ -607,12 +795,14 @@ def batched_phases(noise, card, device="cuda"):
         raise RuntimeError("too few clusters compared (%d)" % sel.sum())
 
     if onCard:
-        wall, busy, top = profile_warm_run(surveyDict)
+        wall, busy, top, ours = profile_warm_run(surveyDict)
         phase(8, "profiled warm batched run: %.3f s wall, device busy %.3f "
-              "s (%.1f%%); top device ops (name, ms, calls): %s (%s)"
-              % (wall, busy, 100 * busy / wall, json.dumps(top), card))
+              "s (%.1f%%); top device ops (name, ms, calls): %s; the "
+              "port's kernels: %s (%s)" % (wall, busy, 100 * busy / wall,
+                                          json.dumps(top), json.dumps(ours),
+                                          card))
 
-    return runs, kernel16
+    return runs
 
 
 def main():
@@ -625,7 +815,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from nemo_tpu_torch import cuda_build
-        from nemo_tpu_torch.ops import noise
+        from nemo_tpu_torch.ops import detect, noise
     except ImportError as exc:
         sys.exit("chip_smoke: the port is not importable from %s (%s)"
                  % (ROOT, exc))
@@ -637,17 +827,17 @@ def main():
              torch.cuda.device_count()))
 
     t0 = time.perf_counter()
+    sources = ("rms_cells.cu", "label_components.cu")
+    cuda_build.build(sources)
     noise.load_kernel()
-    phase(2, "build: rms_cells.cu for sm_90a in %.2f s (nvcc %.2f s)"
-          % (time.perf_counter() - t0,
-             cuda_build.BUILD_SECONDS.get("rms_cells.cu", 0.0)))
+    detect.load_label_kernel()
+    phase(2, "build: %s for sm_90a, in parallel, in %.2f s (nvcc %s)"
+          % (" and ".join(sources), time.perf_counter() - t0,
+             ", ".join("%.2f s" % cuda_build.BUILD_SECONDS.get(k, 0.0)
+                       for k in sources)))
 
-    res = check_kernel(noise)
-    for (layout, dtype), (err, ms, plainMs) in sorted(
-            res.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
-        phase(3, "rms_cells %s %s: max_abs_err %.3e, kernel %.4f ms, "
-              "plain %.4f ms (%s)" % (layout, str(dtype).split(".")[-1],
-                                      err, ms, plainMs, card))
+    rms = check_rms(noise, card)
+    labelErr, labelMs, labelBound, labelBy = check_labels(detect, card)
 
     t0 = time.perf_counter()
     configDict, truth = make_inputs("cuda")
@@ -655,14 +845,13 @@ def main():
           % (SHAPE[0], SHAPE[1], N_CLUSTERS, time.perf_counter() - t0))
 
     torch.cuda.reset_peak_memory_stats()
-    noise.rms_cells.launches = 0
-    noise._rms_cells_plain.calls = 0
+    reset_counts(noise, detect)
     gpuCat, gpuSecs, gpuStages = run_search(configDict, "cuda", "run_cuda")
-    launches = noise.rms_cells.launches
-    plainCalls = noise._rms_cells_plain.calls
-    if launches <= 0 or plainCalls != 0:
-        raise RuntimeError("main path: kernel launches %d, plain calls %d"
-                           % (launches, plainCalls))
+    oneTile = read_counts(noise, detect)
+    launches = oneTile["rms_cells"]
+    plainCalls = oneTile["rms_plain"]
+    if launches <= 0 or plainCalls != 0 or oneTile["staged"] != launches:
+        raise RuntimeError("one-tile path: counts %s" % oneTile)
     recovered = int(np.sum(match(truth, gpuCat, 1.0) >= 0))
     phase(5, "cuda float32 search: %d objects, %d/%d clusters within 1', "
           "%.2f s, peak device memory %.0f MiB, rms_cells launches %d, "
@@ -682,18 +871,36 @@ def main():
         raise RuntimeError("too few clusters recovered (%d, %d)"
                            % (recovered, nCompared))
 
-    runs, kernel16 = batched_phases(noise, card)
-    err16, ms16, plainMs16 = kernel16
+    runs = batched_phases(noise, detect, card)
+    warm = runs["warm"][3]
 
-    err, ms, plainMs = res[("nT1", torch.float32)]
+    errs, flips, ms, bms, by = rms[("step", "float32")]
+    ms1 = rms[("nT1", "float32")][2]
     print(json.dumps({"kernels": [{
         "name": "rms_cells", "route": "cuda",
         "source": "nemo_tpu_torch/csrc/rms_cells.cu",
         "replaces": "nemo_tpu/ops/noise.py:212",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plainMs, "launches_batched": runs["warm"][3],
-        "largest_nT_batched": runs["warm"][4], "ms_nT16": ms16,
-        "plain_ms_nT16": plainMs16, "max_abs_err_nT16": err16}]}))
+        "launches": warm["rms_cells"], "max_abs_err": errs["staged"],
+        "ms": ms["staged"], "plain_ms": ms["plain"], "bound_ms": bms,
+        "bound_by": by, "library_ms": None,
+        "share_of_bound": bms / ms["staged"],
+        "shape": "nT 16 x 900 x 1536 float32, staged variant",
+        "launches_staged": warm["staged"],
+        "launches_streaming": warm["streaming"],
+        "ms_streaming": ms["streaming"],
+        "max_abs_err_streaming": errs["streaming"],
+        "borderline_clip_cells": flips,
+        "launches_one_tile": launches, "ms_nT1": ms1["staged"],
+        "ms_nT1_streaming": ms1["streaming"], "plain_ms_nT1": ms1["plain"],
+    }, {
+        "name": "label_components", "route": "cuda",
+        "source": "nemo_tpu_torch/csrc/label_components.cu",
+        "replaces": "nemo_tpu/ops/detect.py:55 (XLA, not a TPU kernel)",
+        "launches": warm["labels"], "max_abs_err": float(labelErr),
+        "ms": labelMs["kernel"], "plain_ms": labelMs["plain"],
+        "bound_ms": labelBound, "bound_by": labelBy, "library_ms": None,
+        "share_of_bound": labelBound / labelMs["kernel"],
+        "shape": "16 x 900 x 1536 S/N mask, 128 passes"}]}))
     print("total %.1f s" % (time.perf_counter() - tStart))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,31 +43,59 @@ def find_nvcc():
                        "built on this machine")
 
 
+def _lib_path(source):
+    """(source path, library path) of ``csrc/<source>``; the library's name
+    carries a hash of the source and the flags."""
+    path = os.path.join(CSRC_DIR, source)
+    with open(path, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return path, os.path.join(BUILD_DIR, "%s_%s.so"
+                              % (os.path.splitext(source)[0], key[:16]))
+
+
+def build(sources):
+    """Compile every ``csrc/<source>`` whose library is missing, one nvcc
+    process each, all started together.  Raises RuntimeError naming every
+    source that failed to build."""
+    with _lock:
+        _build_locked(sources)
+
+
+def _build_locked(sources):
+    todo = [(s,) + _lib_path(s) for s in sources]
+    todo = [t for t in todo if not os.path.exists(t[2])]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for source, path, lib_path in todo:
+        tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+        procs.append((source, lib_path, tmp, subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-o", tmp, path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for source, lib_path, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("nvcc failed for %s:\n%s" % (source, log))
+            continue
+        os.replace(tmp, lib_path)
+        BUILD_SECONDS[source] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(source, declare):
     """Build (if needed) and load ``csrc/<source>``; ``declare(lib)`` sets
     the ctypes signatures.  Raises RuntimeError if the build fails."""
     with _lock:
         if source in _libs:
             return _libs[source]
-        path = os.path.join(CSRC_DIR, source)
-        with open(path, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        lib_path = os.path.join(BUILD_DIR, "%s_%s.so"
-                                % (os.path.splitext(source)[0], key[:16]))
-        if not os.path.exists(lib_path):
-            nvcc = find_nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = "%s.%d.tmp" % (lib_path, os.getpid())
-            t0 = time.perf_counter()
-            proc = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp, path],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed for %s:\n%s%s"
-                                   % (source, proc.stdout, proc.stderr))
-            os.replace(tmp, lib_path)
-            BUILD_SECONDS[source] = time.perf_counter() - t0
-        lib = ctypes.CDLL(lib_path)
+        _build_locked([source])
+        lib = ctypes.CDLL(_lib_path(source)[1])
         declare(lib)
         _libs[source] = lib
         return lib

@@ -12,6 +12,9 @@ Algorithm (as the JAX package):
    minimisation (Jacobi: every pass reads the previous pass's labels).  A
    component needing more passes splits, exactly as in the reference
    package; the optimal catalog's position dedup removes the duplicates.
+   On CUDA tensors :func:`label_components_batch` launches the
+   hand-written kernel ``csrc/label_components.cu`` (16 passes per launch
+   in shared memory); on CPU tensors its plain torch version.
 3. Each component's root (minimum flat index) is one object; a pixel's
    bucket is the ordinal of its root among all roots in flat order (an
    exclusive cumsum gathered at the label).  Roots beyond ``max_objects``
@@ -29,8 +32,12 @@ Every function takes a leading tile axis (the batch); the unbatched names
 of the JAX package are thin wrappers over it.
 """
 
+import ctypes
+
 import numpy as np
 import torch
+
+from .. import cuda_build
 
 _BIG = 2 ** 30
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -40,7 +47,77 @@ _MAXPIX = 65536     # per-map significant-pixel budget (JAX compact impl)
 def label_components_batch(mask, n_iter=128):
     """4-connected component labels of a (T, ny, nx) bool mask: for mask
     pixels the minimum flat index of the component (after ``n_iter``
-    passes), ``_BIG`` elsewhere.  int32."""
+    passes), ``_BIG`` elsewhere.  int32.
+
+    A CUDA tensor launches ``csrc/label_components.cu`` (and raises if the
+    build, load or launch fails); a CPU tensor runs
+    :func:`_label_components_plain`."""
+    if not isinstance(mask, torch.Tensor) or mask.ndim != 3 \
+            or mask.dtype != torch.bool:
+        raise ValueError("mask must be a (T, ny, nx) bool tensor")
+    n_iter = int(n_iter)
+    if n_iter < 0:
+        raise ValueError("n_iter must be >= 0, got %d" % n_iter)
+    if mask.shape[1] * mask.shape[2] >= _BIG:
+        raise ValueError("a map of %d x %d pixels overflows the int32 labels"
+                         % tuple(mask.shape[1:]))
+    if mask.device.type == "cpu":
+        return _label_components_plain(mask, n_iter)
+    if mask.device.type == "cuda":
+        return _label_components_cuda(mask, n_iter)
+    raise ValueError("label_components runs on cpu or cuda tensors, not %s"
+                     % mask.device)
+
+
+label_components_batch.launches = 0
+
+
+def _declare_labels(lib):
+    lib.nemo_label_passes_per_launch.restype = ctypes.c_int
+    lib.nemo_label_passes_per_launch.argtypes = []
+    fn = lib.nemo_label_components
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+
+
+def load_label_kernel():
+    """Build (first call) and load the labelling kernel's library."""
+    return cuda_build.load_library("label_components.cu", _declare_labels)
+
+
+def label_launch_count(n_iter, passes_per_launch):
+    """Grid launches of one labelling call: one per ``passes_per_launch``
+    passes, the last running the remainder (at least one launch, which
+    turns the mask into initial labels)."""
+    return max(1, -(-int(n_iter) // int(passes_per_launch)))
+
+
+def _label_components_cuda(mask, n_iter):
+    if not mask.is_cuda:
+        raise ValueError("the CUDA label_components kernel needs CUDA tensors")
+    lib = load_label_kernel()
+    mask = mask.contiguous()
+    T, ny, nx = mask.shape
+    launches = label_launch_count(n_iter, lib.nemo_label_passes_per_launch())
+    bufs = torch.empty((2, T, ny, nx), dtype=torch.int32, device=mask.device)
+    changed = torch.zeros(launches, dtype=torch.int32, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.nemo_label_components(
+            mask.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            changed.data_ptr(), T, ny, nx, n_iter, stream)
+    if err != 0:
+        raise RuntimeError("label_components kernel launch failed: CUDA "
+                           "error %d" % err)
+    label_components_batch.launches += 1
+    return bufs[(launches - 1) % 2]
+
+
+def _label_components_plain(mask, n_iter=128):
+    """Plain torch version of the kernel: ``n_iter`` whole-batch Jacobi
+    passes, each a copy, four in-place shifted minima and a mask fill."""
+    _label_components_plain.calls += 1
     T, ny, nx = mask.shape
     flat = torch.arange(ny * nx, dtype=torch.int32,
                         device=mask.device).reshape(ny, nx)
@@ -57,6 +134,9 @@ def label_components_batch(mask, n_iter=128):
         new.masked_fill_(notMask, _BIG)
         lab, new = new, lab
     return lab
+
+
+_label_components_plain.calls = 0
 
 
 def label_components(mask, n_iter=128):

@@ -8,9 +8,11 @@ candidate-cell plan.
 The default estimator's per-cell statistics run through :func:`rms_cells`,
 which launches the hand-written CUDA kernel ``csrc/rms_cells.cu`` (the
 port of the TPU kernel ``_rms_cell_kernel``) on CUDA tensors and its plain
-torch version :func:`_rms_cells_plain` on CPU tensors.  The per-tile host
-path is the kernel's batch of one tile (nT = 1).  The percentile
-estimator stays in torch ops.
+torch version :func:`_rms_cells_plain` on CPU tensors.  The kernel has two
+variants, chosen by :func:`rms_cells_variant` from the window's bytes: the
+window staged in shared memory, or streamed from L2 when it does not fit.
+The per-tile host path is the kernel's batch of one tile (nT = 1).  The
+percentile estimator stays in torch ops.
 """
 
 import ctypes
@@ -111,12 +113,15 @@ def rms_cells(padded, starts_y, starts_x, lens_y, lens_x, window):
             (cell length + 2 * overlap; 0 marks an unused slot, whose RMS
             comes back 0).
         window: (Wy, Wx) bound on the extents (a longer extent is cut to
-            it, as the TPU kernel's fixed window does).
+            it, as the TPU kernel's fixed window does).  It sizes the
+            kernel's variant (:func:`rms_cells_variant`), so pass the
+            largest extent in the tables rather than a looser bound.
     Returns:
         (nT, nCells) cell RMS in ``padded``'s dtype, on its device.
 
-    A CUDA tensor launches ``csrc/rms_cells.cu`` (and raises if the build,
-    load or launch fails); a CPU tensor runs :func:`_rms_cells_plain`.
+    A CUDA tensor launches ``csrc/rms_cells.cu`` in the variant
+    :func:`rms_cells_variant` picks (and raises if the build, load or
+    launch fails); a CPU tensor runs :func:`_rms_cells_plain`.
     """
     tables = (starts_y, starts_x, lens_y, lens_x)
     window = _check_rms_cells_args(padded, tables, window)
@@ -130,14 +135,40 @@ def rms_cells(padded, starts_y, starts_x, lens_y, lens_x, window):
 
 rms_cells.launches = 0
 rms_cells.largest_nT = 0     # largest tile batch a launch has seen
+rms_cells.variant_launches = {"staged": 0, "streaming": 0}
+
+# Shared memory a staged window may take: the 232,448 B an H100 block may
+# use, less the static reduction scratch (csrc/rms_cells.cu,
+# kStagedMaxWindowBytes, checked against the library at load).
+STAGED_MAX_WINDOW_BYTES = 232448 - 1024
+
+
+def rms_cells_variant(window, dtype):
+    """The kernel variant for a (Wy, Wx) window bound of ``dtype`` values:
+    ``"staged"`` (the window copied into shared memory once) when it fits,
+    else ``"streaming"`` (re-read from L2 on every sweep)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = int(window[0]) * int(window[1]) * itemsize
+    return "staged" if nbytes <= STAGED_MAX_WINDOW_BYTES else "streaming"
+
+
+_KERNELS = {("staged", torch.float32): "nemo_rms_cells_staged_f32",
+            ("staged", torch.float64): "nemo_rms_cells_staged_f64",
+            ("streaming", torch.float32): "nemo_rms_cells_f32",
+            ("streaming", torch.float64): "nemo_rms_cells_f64"}
 
 
 def _declare(lib):
-    for name in ("nemo_rms_cells_f32", "nemo_rms_cells_f64"):
+    for name in _KERNELS.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.nemo_rms_cells_staged_max_bytes.restype = ctypes.c_int
+    lib.nemo_rms_cells_staged_max_bytes.argtypes = []
+    if lib.nemo_rms_cells_staged_max_bytes() != STAGED_MAX_WINDOW_BYTES:
+        raise RuntimeError("csrc/rms_cells.cu and ops/noise.py disagree on "
+                           "the staged window limit")
 
 
 def load_kernel():
@@ -145,25 +176,30 @@ def load_kernel():
     return cuda_build.load_library("rms_cells.cu", _declare)
 
 
-def _rms_cells_cuda(padded, starts_y, starts_x, lens_y, lens_x, window):
+def _rms_cells_cuda(padded, starts_y, starts_x, lens_y, lens_x, window,
+                    variant=None):
+    """Launch the kernel; ``variant`` (default :func:`rms_cells_variant`)
+    is given explicitly only to time one variant against the other."""
     if not padded.is_cuda:
         raise ValueError("the CUDA rms_cells kernel needs CUDA tensors")
+    if variant is None:
+        variant = rms_cells_variant(window, padded.dtype)
     lib = load_kernel()
     nT, PY, PX = padded.shape
     nCells = starts_y.shape[1]
     Wy, Wx = window
     out = torch.empty((nT, nCells), dtype=padded.dtype, device=padded.device)
-    fn = lib.nemo_rms_cells_f32 if padded.dtype == torch.float32 \
-        else lib.nemo_rms_cells_f64
+    fn = getattr(lib, _KERNELS[(variant, padded.dtype)])
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(padded.data_ptr(), starts_y.data_ptr(), starts_x.data_ptr(),
                  lens_y.data_ptr(), lens_x.data_ptr(), nT, nCells, PY, PX,
                  Wy, Wx, out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("rms_cells kernel launch failed: CUDA error %d"
-                           % err)
+        raise RuntimeError("rms_cells %s kernel launch failed: CUDA error "
+                           "%d" % (variant, err))
     rms_cells.launches += 1
+    rms_cells.variant_launches[variant] += 1
     rms_cells.largest_nT = max(rms_cells.largest_nT, nT)
     return out
 
@@ -461,6 +497,26 @@ def cell_meta_batch(shapes, padShape, gridSize_pix, overlap_pix=None):
     return {k: np.stack([m[k] for m in metas]) for k in metas[0]}
 
 
+def meta_cell_tables(meta, gridSize_pix, padShape, nT, device,
+                     overlap_pix=None):
+    """The :func:`rms_cells` arguments of a ``meta`` layout: the int32
+    (starts_y, starts_x, lens_y, lens_x) tables on ``device`` (extents are
+    cell length + 2 * overlap, 0 for an unused slot), the window (the
+    largest extent in the tables, never more than :func:`meta_window`'s
+    bound) and the (left, right, top, bottom) zero padding of the map."""
+    Wy, Wx, ov = meta_window(gridSize_pix, padShape, overlap_pix)
+    lensY = np.asarray(meta["lensY"])
+    lensX = np.asarray(meta["lensX"])
+    # unused slots (len 0) mask out entirely, not keep the 2*ov margin
+    effY = np.where(lensY > 0, lensY + 2 * ov, 0)
+    effX = np.where(lensX > 0, lensX + 2 * ov, 0)
+    tabs = [_int32_table(a, nT, device) for a in (
+        meta["startsY"], meta["startsX"], effY, effX)]
+    window = (max(min(int(effY.max(initial=0)), Wy), 1),
+              max(min(int(effX.max(initial=0)), Wx), 1))
+    return tabs, window, (ov, Wx, ov, Wy)
+
+
 def _assemble_rms_meta(cells, c0y, c1y, c0x, c1x):
     """Expand one tile's (nCy, nCx) cell grid to the padded pixel grid from
     per-pixel candidate indices, with _assemble_rms' overwrite priority
@@ -510,17 +566,11 @@ def grid_rms_map_batch(mapBatch, gridSize_pix, overlap_pix=None,
         return torch.stack([_assemble_rms(c, plan_y, plan_x, ny, nx)
                             for c in cells])
 
-    Wy, Wx, ov = meta_window(gridSize, (ny, nx), overlap_pix)
     nCy, nCx = n_cells(ny, gridSize), n_cells(nx, gridSize)
-    lensY = np.asarray(meta["lensY"])
-    lensX = np.asarray(meta["lensX"])
-    # unused slots (len 0) mask out entirely, not keep the 2*ov margin
-    tabs = [_int32_table(a, nT, mapBatch.device) for a in (
-        meta["startsY"], meta["startsX"],
-        np.where(lensY > 0, lensY + 2 * ov, 0),
-        np.where(lensX > 0, lensX + 2 * ov, 0))]
-    padded = torch.nn.functional.pad(mapBatch, (ov, Wx, ov, Wy)).contiguous()
-    cells = rms_cells(padded, *tabs, (Wy, Wx)).reshape(nT, nCy, nCx)
+    tabs, window, pad = meta_cell_tables(meta, gridSize, (ny, nx), nT,
+                                         mapBatch.device, overlap_pix)
+    padded = torch.nn.functional.pad(mapBatch, pad).contiguous()
+    cells = rms_cells(padded, *tabs, window).reshape(nT, nCy, nCx)
     if return_cells:
         return cells
     return torch.stack([

@@ -62,6 +62,88 @@ def test_rms_cells_kernel_matches_plain(cuda_card, dtype, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("variant", ["staged", "streaming"])
+def test_rms_cells_variants_match_plain(cuda_card, variant, dtype, rtol):
+    """Both variants of csrc/rms_cells.cu against the plain version on the
+    batched meta layout with the window sized on the tables' largest
+    extent (the staged variant's case), each launch counted under its
+    variant."""
+    shapes = [(300, 420), (280, 400), (300, 420), (296, 411)]
+    m = cell_map(6, len(shapes), (300, 420))
+    meta = tn.cell_meta_batch(shapes, (300, 420), 64)
+    tabs, window, pad = tn.meta_cell_tables(meta, 64, (300, 420),
+                                            len(shapes), cuda_card)
+    padded = torch.nn.functional.pad(
+        torch.as_tensor(m, dtype=dtype, device=cuda_card), pad).contiguous()
+    assert tn.rms_cells_variant(window, dtype) == "staged"
+    count = tn.rms_cells.variant_launches[variant]
+    got = tn._rms_cells_cuda(padded, *tabs, window, variant=variant)
+    torch.cuda.synchronize()
+    assert tn.rms_cells.variant_launches[variant] == count + 1
+    ref = tn._rms_cells_plain(padded, *tabs, window)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=rtol, atol=0)
+    assert np.any(got.cpu().numpy() == 0)          # unused / empty cells
+
+
+def sn_masks(seed=7, T=16, shape=(900, 1536)):
+    """(T, ny, nx) bool masks at the batched step's shape on the card: an
+    S/N-like map (beam-smoothed white noise at unit rms plus ~20 compact
+    sources a tile) above 4, an empty mask, and a one-pixel serpentine
+    through every tile (far more than 128 passes long) over the S/N
+    mask."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    white = torch.as_tensor(rng.standard_normal((T,) + shape,
+                                                dtype=np.float32), device=dev)
+    ly = torch.fft.fftfreq(shape[0], device=dev)[:, None]
+    lx = torch.fft.rfftfreq(shape[1], device=dev)[None, :]
+    beam = torch.exp(-2 * (np.pi * 1.5) ** 2 * (ly ** 2 + lx ** 2))
+    sn = torch.fft.irfft2(torch.fft.rfft2(white) * beam, s=shape)
+    sn = sn / sn.std()
+    yy = torch.arange(shape[0], device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(shape[1], device=dev, dtype=torch.float32)[None, :]
+    for t in range(T):
+        for y, x, a in zip(rng.uniform(20, shape[0] - 20, 20),
+                           rng.uniform(20, shape[1] - 20, 20),
+                           rng.uniform(5, 15, 20)):
+            sn[t] += float(a) * torch.exp(-((yy - y) ** 2 + (xx - x) ** 2)
+                                          / (2 * 3.0 ** 2))
+    snake = torch.zeros((T,) + shape, dtype=torch.bool, device=dev)
+    for k, r in enumerate(range(1, shape[0] - 1, 4)):
+        snake[:, r, 1:shape[1] - 1] = True
+        col = shape[1] - 2 if k % 2 == 0 else 1
+        snake[:, r:min(r + 5, shape[0] - 1), col] = True
+    sig = sn > 4.0
+    return {"sn": sig, "empty": torch.zeros_like(sig), "snake": snake | sig}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iter", [128, 4000, 37])
+def test_label_kernel_matches_plain(cuda_card, n_iter):
+    """csrc/label_components.cu equals its plain version bitwise at the
+    batched step's 16 x 900 x 1536, on an S/N mask, an empty mask and a
+    serpentine that splits at 128 passes; one counted launch per call."""
+    from nemo_tpu_torch.ops import detect as td
+    masks = sn_masks()
+    for name, mask in masks.items():
+        launches = td.label_components_batch.launches
+        got = td.label_components_batch(mask, n_iter=n_iter)
+        torch.cuda.synchronize()
+        assert td.label_components_batch.launches == launches + 1
+        ref = td._label_components_plain(mask, n_iter)
+        assert got.dtype == torch.int32 and got.shape == mask.shape
+        assert torch.equal(got, ref), (name, n_iter)
+    assert int(masks["sn"].sum()) > 0
+    if n_iter == 128:
+        got = td.label_components_batch(masks["snake"][:1], n_iter=n_iter)
+        snake = masks["snake"][0] & ~masks["sn"][0]
+        assert len(torch.unique(got[0][snake])) > 1    # split at 128
+
+
+@pytest.mark.cuda
 def test_grid_rms_map_on_card_matches_cpu(cuda_card):
     """The host path's grid RMS (nT = 1 through the kernel) on the card
     against the CPU's plain version, float64."""

@@ -74,6 +74,124 @@ def test_label_components_batch_matches_single():
             got[i], np.asarray(jd.label_components(jnp.asarray(ms[i]))))
 
 
+def blocked_label_model(mask, n_iter, tile, halo):
+    """numpy model of ``csrc/label_components.cu``'s scheme on a (T, ny,
+    nx) mask: launches of at most ``halo`` Jacobi passes, each block
+    computing a ``tile`` x ``tile`` interior from a haloed region on its
+    shrinking exact rectangle; a block whose region holds no label below
+    2**30 writes 2**30; a block stops at a pass that changes nothing; a
+    launch whose first pass changed nothing anywhere makes every later one
+    return at once.  Values outside the exact rectangle are poisoned with
+    -1, so reading one would show.  Returns (labels, launches run)."""
+    BIG = td._BIG
+    T, ny, nx = mask.shape
+    R = tile + 2 * halo
+    L = td.label_launch_count(n_iter, halo)
+    flat = np.arange(ny * nx, dtype=np.int32).reshape(ny, nx)
+    bufs = [np.full((T, ny, nx), -7, np.int32) for _ in range(2)]
+    changed = np.zeros(L, bool)
+    ran = 0
+    for j in range(L):
+        if j >= 2 and not changed[j - 1]:
+            continue
+        ran += 1
+        passes = n_iter - j * halo if j == L - 1 else halo
+        src = np.where(mask, flat, BIG) if j == 0 else bufs[(j + 1) % 2]
+        srcp = np.full((T, ny + 2 * R, nx + 2 * R), BIG, np.int32)
+        srcp[:, R:R + ny, R:R + nx] = src
+        dst = bufs[j % 2]
+        for t in range(T):
+            for y0 in range(-halo, ny - halo, tile):
+                for x0 in range(-halo, nx - halo, tile):
+                    a = srcp[t, y0 + R:y0 + 2 * R, x0 + R:x0 + 2 * R].copy()
+                    if (a != BIG).any():
+                        for q in range(1, passes + 1):
+                            inner = a[q:R - q, q:R - q]
+                            nb = np.minimum(
+                                np.minimum(a[q - 1:R - q - 1, q:R - q],
+                                           a[q + 1:R - q + 1, q:R - q]),
+                                np.minimum(a[q:R - q, q - 1:R - q - 1],
+                                           a[q:R - q, q + 1:R - q + 1]))
+                            new = np.where(inner != BIG,
+                                           np.minimum(inner, nb), BIG)
+                            moved = bool((new != inner).any())
+                            a = np.full_like(a, -1)
+                            a[q:R - q, q:R - q] = new
+                            if not moved:
+                                break
+                            if q == 1:
+                                changed[j] = True
+                    yi, xi = y0 + halo, x0 + halo
+                    h, w = min(tile, ny - yi), min(tile, nx - xi)
+                    dst[t, yi:yi + h, xi:xi + w] = \
+                        a[halo:halo + h, halo:halo + w]
+    return bufs[(L - 1) % 2], ran
+
+
+def _label_case(case):
+    if case == "random":
+        return np.random.default_rng(1).random((70, 95)) > 0.55
+    if case == "blobs":
+        return blob_map(2) > 4.0
+    if case == "snake":
+        return snake_mask()
+    return np.zeros((33, 50), dtype=bool)
+
+
+@pytest.mark.parametrize("geometry", [(64, 16), (8, 3)])
+@pytest.mark.parametrize("n_iter", [128, 37, 4000])
+@pytest.mark.parametrize("case", ["random", "blobs", "snake", "empty"])
+def test_blocked_label_scheme_matches_jax(case, n_iter, geometry):
+    """The labelling kernel's scheme (at the kernel's 64 x 64 tiles with a
+    16-pixel halo, and at 8 x 8 tiles with a 3-pixel halo, so that small
+    maps cross many tiles) equals the JAX package's label_components
+    bitwise, including the serpentine's split at 128 passes and an n_iter
+    that is not a multiple of the passes per launch."""
+    m = _label_case(case)
+    tile, halo = geometry
+    got, ran = blocked_label_model(m[None], n_iter, tile, halo)
+    ref = np.asarray(jd.label_components(jnp.asarray(m), n_iter=n_iter))
+    np.testing.assert_array_equal(got[0], ref)
+    if n_iter == 4000 and case != "snake":
+        # converged long before: the unchanged-launch stop fired
+        assert ran < td.label_launch_count(n_iter, halo)
+
+
+@pytest.mark.parametrize("n_iter", [128, 4000])
+def test_blocked_label_scheme_batch(n_iter):
+    """A batch shares the unchanged-launch flag: the serpentine keeps every
+    tile's launches running while a blob tile and an empty tile are
+    already final."""
+    ms = np.stack([snake_mask((40, 40)), blob_map(7, (40, 40), 3) > 4.0,
+                   np.zeros((40, 40), dtype=bool)])
+    got, _ = blocked_label_model(ms, n_iter, 8, 3)
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], np.asarray(
+            jd.label_components(jnp.asarray(ms[i]), n_iter=n_iter)))
+    np.testing.assert_array_equal(
+        got, td.label_components_batch(torch.as_tensor(ms),
+                                       n_iter=n_iter).numpy())
+
+
+def test_label_components_uses_plain_version_on_cpu():
+    m = torch.as_tensor(_label_case("blobs"))[None]
+    launches = td.label_components_batch.launches
+    calls = td._label_components_plain.calls
+    out = td.label_components_batch(m, n_iter=37)
+    assert td._label_components_plain.calls == calls + 1
+    assert td.label_components_batch.launches == launches
+    np.testing.assert_array_equal(
+        out.numpy(), td._label_components_plain(m, 37).numpy())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        td._label_components_cuda(m, 128)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        td.label_components_batch(m.to("meta"))
+    with pytest.raises(ValueError, match="bool"):
+        td.label_components_batch(m.to(torch.uint8))
+    with pytest.raises(ValueError, match="n_iter"):
+        td.label_components_batch(m, n_iter=-1)
+
+
 def _check_det(got, ref):
     valid = np.asarray(ref["valid"])
     np.testing.assert_array_equal(got["valid"].numpy(), valid)

@@ -161,11 +161,70 @@ def test_rms_cells_uses_plain_version_on_cpu():
     m = T(cell_map(seed=2, nT=1))
     tabs = tables([[0, 50]], [[0, 60]], [[80, 80]], [[90, 90]])
     launches, calls = tn.rms_cells.launches, tn._rms_cells_plain.calls
+    variants = dict(tn.rms_cells.variant_launches)
     out = tn.rms_cells(m, *tabs, (80, 90))
     assert tn._rms_cells_plain.calls == calls + 1
     assert tn.rms_cells.launches == launches
+    assert tn.rms_cells.variant_launches == variants
     np.testing.assert_array_equal(
         out.numpy(), tn._rms_cells_plain(m, *tabs, (80, 90)).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_clip_fixed_point_stop_is_exact(dtype):
+    """The staged kernel's shortcut: the clip loop stops at the first
+    iteration whose threshold equals the last one's.  Modelled on the plain
+    version's arithmetic, it gives bit for bit the result of all 10
+    iterations, and it does stop early."""
+    m = T(cell_map(seed=8, nT=1)).to(dtype)
+    ov, ye, xe, window, geometry = tn._grid_geometry(300, 420, 64, None)
+    padded = torch.nn.functional.pad(
+        m, (ov, window[1], ov, window[0])).contiguous()
+    windows, valid = tn._gather_windows(
+        padded, *[tn._int32_table(a, 1, "cpu") for a in geometry], window)
+    mean, rms, n0 = tn._masked_mean_std(windows, valid)
+    last = None
+    stopped = torch.zeros_like(n0, dtype=torch.bool)
+    ran = 0
+    for _ in range(10):
+        thr = torch.abs(mean + 3.0 * rms)
+        if last is not None:
+            stopped |= thr == last
+        if bool(stopped.all()):
+            break
+        ran += 1
+        last = thr
+        clip = valid & (torch.abs(windows) < thr[:, None])
+        newMean, newRms, nm = tn._masked_mean_std(windows, clip)
+        keep = (nm > 0) & ~stopped
+        mean = torch.where(keep, newMean, mean)
+        rms = torch.where(keep, newRms, rms)
+    early = torch.where(n0 > 0, rms, torch.zeros_like(rms))
+    assert ran < 10
+    assert torch.equal(early, tn._cell_stats(windows, valid))
+
+
+def test_rms_cells_variant_choice():
+    """The staged variant at the batched step's extents (16 DR5-like
+    896 x 1536 tiles padded to 900 x 1536, grid 80 px: the window is the
+    largest extent in the tables, not meta_window's 240 x 240 bound), in
+    float32 and float64; the streaming variant for whole_map_rms's single
+    cell and for float64 windows past a block's 232,448 B."""
+    meta = tn.cell_meta_batch([(896, 1536)] * 16, (900, 1536), 80)
+    tabs, window, pad = tn.meta_cell_tables(meta, 80, (900, 1536), 16,
+                                            "cpu")
+    assert window == (162, 161)
+    assert window == (int(tabs[2].max()), int(tabs[3].max()))
+    assert pad == (40, 240, 40, 240)
+    assert [t.shape for t in tabs] == [(16, 209)] * 4
+    for dtype in (torch.float32, torch.float64):
+        assert tn.rms_cells_variant(window, dtype) == "staged"
+    assert tn.rms_cells_variant((896, 1536), torch.float32) == "streaming"
+    assert tn.rms_cells_variant((240, 240), torch.float64) == "streaming"
+    assert tn.rms_cells_variant((240, 240), torch.float32) == "staged"
+    assert 162 * 161 * 8 <= tn.STAGED_MAX_WINDOW_BYTES < 240 * 240 * 8
+    # the host path's layout (nT = 1) sizes its window the same way
+    assert tn._grid_geometry(896, 1536, 80, None)[3] == (162, 161)
 
 
 def test_cuda_path_without_a_card_raises(monkeypatch):
