@@ -8,13 +8,17 @@ plain torch version at the main paths' shapes, then runs the one-tile cluster
 search (nemo_tpu_torch: config -> preprocess -> matched filters -> grid
 RMS / S/N -> detection -> photometry -> optimal catalog) on a seeded
 two-band 896 x 1536 tile on the card in float32, and again on the CPU in
-float64, and checks that both recover the injected clusters alike.
+float64, and checks that both recover the injected clusters alike; then a
+16-tile survey chunk through the batched engine, and the same survey
+through the ``nemo`` CLI with the DR5 selection-function epilogue (Q fit,
+RMS tables, completeness, mass-limit maps) and through ``nemoMass``.
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
   1 card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2 build: nvcc builds of nemo_tpu_torch/csrc/rms_cells.cu and
-    label_components.cu, started together, seconds;
+  2 build: nvcc builds of nemo_tpu_torch/csrc/rms_cells.cu,
+    label_components.cu and boltzmann_rk4.cu, started together, seconds,
+    and ptxas's register and spill report of the Boltzmann kernel;
   3 kernels vs plain versions on the card, timed with CUDA events in the
     order plain, kernel(s), kernel(s), plain, each beside its bound:
     rms_cells' staged and streaming variants (f64 rtol 1e-10, f32 rtol
@@ -22,7 +26,10 @@ non-zero and prints no result):
     path) and at the batched step's nT = 16 x 900 x 1536;
     label_components bitwise at 16 x 900 x 1536 on an S/N
     mask, an empty mask and a serpentine that splits at 128 passes, with
-    n_iter 128, 4000 and 37;
+    n_iter 128, 4000 and 37; boltzmann_rk4 on the 160-k splice grid at
+    nGrid 4,096 (rtol 1e-9), timed plain, kernel, kernel, and at the
+    production nGrid 24,576 against its plain version and the JAX
+    package's table in tests/data (rtol 1e-9);
   4 inputs: seeded CMB + white noise + ~20 Arnaud clusters, written as
     FITS with beam files under _smoke_work/;
   5 the main path on the card (cuda, float32), with the kernel's launch
@@ -39,13 +46,26 @@ non-zero and prints no result):
     under torch.profiler: the card's busy share and its largest device
     operations;
   9 batched against the per-tile host engine on the card, same 16 tiles,
-    the photometry filter and one other scale.
+    the photometry filter and one other scale;
+ 10 the DR5 epilogue: ``nemo -S --device cuda`` on the same survey with the
+    16-scale bank, DR5's fitQ, selFnOptions and massOptions (the default
+    Boltzmann transfer): seconds by stage, the fitQ route and its chunk
+    budgets, kernel launches (Boltzmann: one per distinct cosmology; plain
+    calls 0), Q at the reference filter's theta500 per tile (a sanity
+    print: 1 by construction), the 90% mass limit for 0.2 < z < 1;
+ 11 fitQ routes on the card: tile-batched against serial on all 16 tiles,
+    and one tile against the CPU float64 serial route;
+ 12 masses: the nemoMass CLI on the card against a seeded redshift
+    catalog at the truth positions, its mass columns against the same CLI
+    on the CPU in float64 (rtol 2e-3), and calcMassBatch on 10,000 seeded
+    rows, card against CPU float64, rows per second.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 
 Needs a CUDA device and nvcc; imports no JAX.
 """
 
+import copy
 import json
 import os
 import shutil
@@ -94,6 +114,20 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "int32": 67e12}
 RMS_OPS_PER_PIXEL_STAGE = 7
 # operations per mask pixel and Jacobi pass: four minima and a compare
 LABEL_OPS_PER_PIXEL_PASS = 5
+# float64 operations of csrc/boltzmann_rk4.cu, counted from the source (each
+# +, -, *, /, compare, min, max and exp one operation): per derivative
+# evaluation the shared terms (matter, potentials, regime tests, the /Hc
+# of the 22 photon and 13 neutrino rates), the photon rates by regime
+# (streaming, tight coupling, full hierarchies), the neutrino rates by
+# regime and phi's streaming pin; per step the three background reads
+# (searchsorted, five lerps, exp), the abscissae, h_tau and the rate cap,
+# the RK4 stages and combine over 36 components, the relaxation's test
+# and, outside tight coupling, its update
+BOLTZ_OPS = {"derivs": 81 + 18 + 13, "photons_rsa": 39, "photons_tca": 58,
+             "photons_full": 82, "neutrinos_rsa": 29, "neutrinos_full": 67,
+             "phi_rsa": 17, "step": 3 * 27 + 3 + 2 + 468 + 3, "relax": 63}
+BOLTZ_REF = os.path.join(ROOT, "tests", "data",
+                         "boltzmann_transfer_reference.json")
 
 
 def bound(nbytes, ops, optype):
@@ -344,6 +378,111 @@ def check_labels(detect, card):
     del masks, mask
     torch.cuda.empty_cache()
     return err, ms, bms, by
+
+
+def boltzmann_ops(boltzmann, bg, k):
+    """float64 operations of one Boltzmann kernel launch on these inputs:
+    BOLTZ_OPS by the regime each k is in at each RK4 abscissa (the
+    kernel's own regime tests on the background tables)."""
+    h = float(bg.lna[1] - bg.lna[0])
+    import torch
+    x = torch.as_tensor(bg.lna[:-1], dtype=torch.float64)
+    kk = np.asarray(k, dtype=np.float64)[:, None]
+    o = BOLTZ_OPS
+    total = kk.size * x.shape[0] * o["step"]
+    for xx, evals in ((x, 1), (x + h / 2, 2), (x + h, 1)):
+        _, Hc, tau, kap, _, kD = boltzmann._background_at(bg, xx)
+        ktau = kk * tau
+        rsa = ((ktau > boltzmann.RSA_KTAU) & (kap < boltzmann.RSA_KAPPA * kk)) \
+            | ((ktau > 100.0) & (kk > 3.0 * kD))
+        tight = kap > boltzmann.TCA_FAC * np.maximum(kk, Hc)
+        tca = tight & ~rsa
+        per = (o["derivs"]
+               + np.where(rsa, o["photons_rsa"] + o["phi_rsa"],
+                          np.where(tca, o["photons_tca"], o["photons_full"]))
+               + np.where(ktau > boltzmann.RSA_KTAU, o["neutrinos_rsa"],
+                          o["neutrinos_full"]))
+        total += evals * int(per.sum())
+        if evals == 1 and xx is not x:      # the step's end: relaxation
+            total += o["relax"] * int((~tight).sum())
+    return total
+
+
+def check_boltzmann(boltzmann, cosmology, card):
+    """The Boltzmann kernel against its plain version on the 160-k splice
+    grid at nGrid 4,096, timed plain, kernel, kernel (the plain version
+    once: it takes ~40 s), then at the main path's nGrid 24,576 against
+    the plain version (one run) and the JAX package's committed table.
+    All compared at rtol 1e-9: the same float64 arithmetic in the same
+    order, apart from exp and the interpolation's last bits (~1e-11 over
+    the integration).  Returns a dict of the measurements."""
+    import torch
+    dev = torch.device("cuda")
+    k = torch.as_tensor(cosmology._BOLTZ_KGRID, device=dev)
+    bg = boltzmann._solver_tables(70.0, 0.3, 0.05, 4096)
+    boltzmann._transfer_cuda(k, bg)             # module load
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return [t.cpu().numpy() for t in out], start.elapsed_time(stop)
+
+    (Tp, Rp), plainMs = timed(lambda: boltzmann._transfer_plain(k, bg))
+    (T, R), t1 = timed(lambda: boltzmann._transfer_cuda(k, bg))
+    _, t2 = timed(lambda: boltzmann._transfer_cuda(k, bg))
+    np.testing.assert_allclose(T, Tp, rtol=1e-9, atol=0, err_msg="nGrid 4096")
+    np.testing.assert_allclose(R, Rp, rtol=1e-9, atol=0, err_msg="nGrid 4096")
+    res = {"ms4096": (t1 + t2) / 2, "plain_ms4096": plainMs,
+           "max_abs_err": float(np.max(np.abs(T - Tp))),
+           "max_rel_err": float(np.max(np.abs(T / Tp - 1)))}
+
+    with open(BOLTZ_REF) as f:
+        ref = json.load(f)
+    if not np.array_equal(np.array(ref["kMpc"]), cosmology._BOLTZ_KGRID):
+        raise RuntimeError("the reference table's k grid is not the port's")
+    bg24 = boltzmann._solver_tables(ref["H0"], ref["Om0"], ref["Ob0"],
+                                    ref["nGrid"])
+    k24 = torch.as_tensor(np.array(ref["kMpc"]), device=dev)
+    (T24, R24), t1 = timed(lambda: boltzmann._transfer_cuda(k24, bg24))
+    _, t2 = timed(lambda: boltzmann._transfer_cuda(k24, bg24))
+    # the plain version once at the main path's nGrid (~4 minutes: its
+    # time is the ~1,000 small launches of each of the 24,575 steps)
+    (Tp24, Rp24), tp = timed(lambda: boltzmann._transfer_plain(k24, bg24))
+    Tref, Rref = np.array(ref["T"]), np.array(ref["R0"])
+    np.testing.assert_allclose(T24, Tref, rtol=1e-9, atol=0,
+                               err_msg="nGrid 24576 vs the JAX table")
+    np.testing.assert_allclose(T24, Tp24, rtol=1e-9, atol=0,
+                               err_msg="nGrid 24576 vs plain")
+    np.testing.assert_allclose(R24, Rref, rtol=1e-9, atol=0)
+    np.testing.assert_allclose(R24, Rp24, rtol=1e-9, atol=0)
+    res.update(ms24576=(t1 + t2) / 2, plain_ms24576=tp,
+               max_rel_err_24576=float(np.max(np.abs(T24 / Tref - 1))),
+               max_abs_err_24576=float(np.max(np.abs(T24 - Tref))),
+               max_abs_err_24576_plain=float(np.max(np.abs(T24 - Tp24))),
+               max_rel_err_24576_plain=float(np.max(np.abs(T24 / Tp24 - 1))))
+    for tag, g, kk in (("4096", bg, k), ("24576", bg24, k24)):
+        nbytes = 6 * g.lna.size * 8 + 3 * kk.numel() * 8
+        ops = boltzmann_ops(boltzmann, g, kk.cpu().numpy())
+        res["ops" + tag] = ops
+        res["bound_ms" + tag], res["bound_by" + tag] = bound(nbytes, ops,
+                                                             "float64")
+    phase(3, "boltzmann_rk4 160 k: nGrid 4096 kernel %.3f ms, plain %.1f "
+          "ms, max rel err vs plain %.2e; nGrid 24576 kernel %.3f ms, plain "
+          "%.1f ms, max rel err vs plain %.2e, vs the JAX table %.2e; bound "
+          "%.4f / %.4f ms (%s: %.3g / %.3g float64 operations), kernel at "
+          "%.3f%% of it at 24576 (%s)"
+          % (res["ms4096"], res["plain_ms4096"], res["max_rel_err"],
+             res["ms24576"], res["plain_ms24576"],
+             res["max_rel_err_24576_plain"], res["max_rel_err_24576"],
+             res["bound_ms4096"], res["bound_ms24576"], res["bound_by24576"],
+             res["ops4096"], res["ops24576"],
+             100 * res["bound_ms24576"] / res["ms24576"], card))
+    return res
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -630,22 +769,28 @@ def chunk_budget(outDir):
 
 def reset_counts(noise, detect):
     """Set every kernel launch count and plain-version call count to 0."""
+    from nemo_tpu_torch.models import boltzmann
     noise.rms_cells.launches = 0
     noise.rms_cells.largest_nT = 0
     noise.rms_cells.variant_launches.update(staged=0, streaming=0)
     noise._rms_cells_plain.calls = 0
     detect.label_components_batch.launches = 0
     detect._label_components_plain.calls = 0
+    boltzmann.transfer_function.launches = 0
+    boltzmann._transfer_plain.calls = 0
 
 
 def read_counts(noise, detect):
+    from nemo_tpu_torch.models import boltzmann
     return {"rms_cells": noise.rms_cells.launches,
             "largest_nT": noise.rms_cells.largest_nT,
             "staged": noise.rms_cells.variant_launches["staged"],
             "streaming": noise.rms_cells.variant_launches["streaming"],
             "rms_plain": noise._rms_cells_plain.calls,
             "labels": detect.label_components_batch.launches,
-            "labels_plain": detect._label_components_plain.calls}
+            "labels_plain": detect._label_components_plain.calls,
+            "boltzmann": boltzmann.transfer_function.launches,
+            "boltzmann_plain": boltzmann._transfer_plain.calls}
 
 
 def batched_run(configDict, outName, noise, detect, device="cuda"):
@@ -697,7 +842,8 @@ def profile_warm_run(configDict):
 
 
 def batched_phases(noise, detect, card, device="cuda"):
-    """Phases 7 to 9; returns the batched runs by tag."""
+    """Phases 7 to 9; returns (the batched runs by tag, the survey's
+    config dict, its truth table)."""
     import torch
     onCard = device == "cuda"
     t0 = time.perf_counter()
@@ -722,11 +868,13 @@ def batched_phases(noise, detect, card, device="cuda"):
         if onCard:
             want = {"rms_cells": nLabels, "largest_nT": nTiles,
                     "staged": nLabels, "streaming": 0, "rms_plain": 0,
-                    "labels": nLabels, "labels_plain": 0}
+                    "labels": nLabels, "labels_plain": 0, "boltzmann": 0,
+                    "boltzmann_plain": 0}
         else:
             want = {"rms_cells": 0, "largest_nT": 0, "staged": 0,
                     "streaming": 0, "rms_plain": nLabels, "labels": 0,
-                    "labels_plain": nLabels}
+                    "labels_plain": nLabels, "boltzmann": 0,
+                    "boltzmann_plain": 0}
         if counts != want:
             raise RuntimeError("batched %s run: counts %s (want %s)"
                                % (tag, counts, want))
@@ -802,7 +950,288 @@ def batched_phases(noise, detect, card, device="cuda"):
                                           json.dumps(top), json.dumps(ours),
                                           card))
 
-    return runs
+    return runs, surveyDict, surveyTruth
+
+
+# -- phases 10 to 12 -----------------------------------------------------------
+
+# examples/dr5-cluster-search.yml's selection-function options (the
+# redshift catalog is the smoke's own; no transferFunction: the default
+# Boltzmann transfer)
+DR5_MASS_OPTIONS = {"tenToA0": 4.95e-5, "B0": 0.08, "Mpivot": 3.0e+14,
+                    "sigma_int": 0.2, "relativisticCorrection": True,
+                    "rescaleFactor": 0.71, "rescaleFactorErr": 0.07}
+DR5_SELFN_OPTIONS = {"fixedSNRCut": 5.0, "method": "fast",
+                     "massLimitMaps": [{"z": 0.5}]}
+MASS_ROWS = 10000
+
+
+def redshift_catalog(truth, path, seed=SEED + 11):
+    """Seeded redshifts at the truth positions, half spectroscopic (zErr
+    0) and half photometric (zErr 0.03), written as FITS."""
+    from nemo_tpu_torch import catalogs
+    from nemo_tpu_torch.utils.tables import Table
+    rng = np.random.default_rng(seed)
+    n = len(truth["RADeg"])
+    catalogs.writeCatalog(Table({
+        "name": np.array(["SMOKE-Z%04d" % i for i in range(n)]),
+        "RADeg": np.asarray(truth["RADeg"]),
+        "decDeg": np.asarray(truth["decDeg"]),
+        "redshift": rng.uniform(0.1, 1.0, n),
+        "redshiftErr": np.where(np.arange(n) % 2 == 0, 0.0, 0.03)}), path)
+
+
+def epilogue_config(surveyDict, truth):
+    """The survey's config with DR5's fitQ, calcSelFn, selFnOptions and
+    massOptions, written as JSON (which YAML parsers read too); returns
+    (config path, dict, output directory)."""
+    work = os.path.join(WORK, "dr5")
+    os.makedirs(work, exist_ok=True)
+    zPath = os.path.join(work, "redshifts.fits")
+    redshift_catalog(truth, zPath)
+    outDir = os.path.join(work, "epilogue")
+    d = dict(copy.deepcopy(surveyDict), fitQ=True, calcSelFn=True,
+             outputDir=outDir, selFnOptions=copy.deepcopy(DR5_SELFN_OPTIONS),
+             massOptions=dict(DR5_MASS_OPTIONS, redshiftCatalog=zPath))
+    cfgPath = os.path.join(work, "dr5_epilogue.yml")
+    with open(cfgPath, "w") as f:
+        json.dump(d, f, indent=1)
+    return cfgPath, d, outDir
+
+
+def qfit_tables(path):
+    """{tile: Q array} of a QFit.fits."""
+    from nemo_tpu_torch.utils import fits as nfits
+    out = {}
+    for h in nfits.read(path):
+        if h.is_table:
+            cols, _ = nfits.read_table(path, ext=h.name)
+            out[h.name] = np.asarray(cols["Q"], dtype=float)
+    return out
+
+
+def epilogue_phase(noise, detect, card, surveyDict, truth, device="cuda"):
+    """Phase 10: ``nemo -S`` with the DR5 epilogue on the survey; returns
+    (config path, config dict, output directory, launch counts)."""
+    import torch
+    from nemo_tpu_torch.cli import nemo_main
+    from nemo_tpu_torch.models import cosmology, qfit
+    from nemo_tpu_torch.utils.tables import Table
+    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    cfgPath, d, outDir = epilogue_config(surveyDict, truth)
+    nTiles = len(d["tileDefinitions"])
+    GLOBAL_TIMER.__init__()
+    reset_counts(noise, detect)
+    t0 = time.perf_counter()
+    nemo_main.main([cfgPath, "-S", "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts(noise, detect)
+    stages = dict(GLOBAL_TIMER.stages)
+    if device == "cuda" and (counts["boltzmann"] != 1
+                             or counts["boltzmann_plain"] != 0
+                             or counts["rms_cells"] <= 0
+                             or counts["rms_plain"] != 0
+                             or counts["labels"] <= 0
+                             or counts["labels_plain"] != 0):
+        raise RuntimeError("DR5 epilogue run: counts %s" % counts)
+
+    selFn = os.path.join(outDir, "selFn")
+    diag = os.path.join(outDir, "diagnostics")
+    for name in ("QFit.fits", "RMSTab.fits", "fRelWeights.fits",
+                 "tileAreas.fits"):
+        if not os.path.exists(os.path.join(selFn, name)):
+            raise RuntimeError("the epilogue wrote no selFn/%s" % name)
+    qtabs = qfit_tables(os.path.join(selFn, "QFit.fits"))
+    if len(qtabs) != nTiles:
+        raise RuntimeError("QFit.fits holds %d tiles" % len(qtabs))
+    # a sanity print, not a check: fitQ divides each tile's Q by the
+    # reference model's own peak (and raises itself when that peak is more
+    # than 1% off the filter's y0), so Q there is 1 by construction
+    Q = qfit.QFit(selFnDir=selFn)
+    thetaRef = cosmology.calcTheta500Arcmin(0.4, 2e14,
+                                            cosmology.fiducialCosmoModel())
+    qRef = {t: float(Q.getQ(np.array([thetaRef]), z=0.4, tileName=t)[0])
+            for t in sorted(qtabs)}
+    comp = Table.read(os.path.join(diag, "completeness90pc_full.fits"))
+    z = np.asarray(comp["z"])
+    mlim = np.asarray(comp["MLim_90pc_1e14MSun"])
+    sel = (z > 0.2) & (z < 1.0) & np.isfinite(mlim)
+    if not sel.any():
+        raise RuntimeError("no 90% mass limit for 0.2 < z < 1")
+    limMaps = [t for t in sorted(qtabs) if os.path.exists(os.path.join(
+        diag, t, "massLimitMap_z0p5#%s.fits" % t))]
+    if len(limMaps) != nTiles:
+        raise RuntimeError("mass-limit maps for %d tiles" % len(limMaps))
+    with open(os.path.join(diag, "chunk_budgets.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    qrecs = [r for r in recs if r.get("stage") == "fitQ"]
+    route = "tile-batched" if qrecs else "per-tile"
+    phase(10, "nemo -S on %s, %d tiles x %d scales with the DR5 epilogue: "
+          "%.2f s; stages (s) %s; fitQ route %s, chunks of %s tiles, "
+          "budget %s; launches and plain calls %s (%s)"
+          % (device, nTiles, len(d["mapFilters"]), secs,
+             json.dumps({k: round(v, 3) for k, v in sorted(stages.items())}),
+             route, [r["nTiles"] for r in qrecs],
+             json.dumps(qrecs[-1]["cum"] if qrecs else {}),
+             json.dumps(counts), card))
+    phase(10, "Q at the reference filter's theta500 (%.3f') per tile: %s; "
+          "90%% mass limit for 0.2 < z < 1: mean %.3f, range %.3f-%.3f "
+          "x 1e14 MSun (M500c); mass-limit maps for %d tiles (%s)"
+          % (thetaRef, json.dumps({t: round(q, 4) for t, q in qRef.items()}),
+             float(np.mean(mlim[sel])), float(np.min(mlim[sel])),
+             float(np.max(mlim[sel])), len(limMaps), card))
+    return cfgPath, d, outDir, counts
+
+
+def qfit_routes_phase(card, d, outDir, device="cuda"):
+    """Phase 11: the per-tile route (model chunks of 16) on the card on
+    every tile, and the CPU float64 serial route on one tile, against the
+    epilogue's tile-batched Q tables.  Tolerance rtol 1e-4: the float32
+    FFTs of a 900 x 1536 tile carry ~1e-6 relative round-off into each
+    filtered peak, and the routes sum in other orders."""
+    from nemo_tpu_torch import startup
+    from nemo_tpu_torch.models import qfit
+
+    batched = qfit_tables(os.path.join(outDir, "selFn", "QFit.fits"))
+
+    def run(device, tiles, tag):
+        parDict = startup.parseConfigDict(copy.deepcopy(d))
+        parDict["qfitTileBatch"] = False
+        config = startup.NemoConfig(parDict, device=device)
+        config.selFnDir = os.path.join(WORK, "dr5", "qfit_" + tag)
+        os.makedirs(config.selFnDir, exist_ok=True)
+        config.tileNames = tiles
+        t0 = time.perf_counter()
+        qfit.fitQ(config)
+        secs = time.perf_counter() - t0
+        got = qfit_tables(os.path.join(config.selFnDir, "QFit.fits"))
+        rel = max(float(np.max(np.abs(got[t] / batched[t] - 1)))
+                  for t in tiles)
+        if rel > 1e-4:
+            raise RuntimeError("fitQ %s route differs from tile-batched by "
+                               "%.3e" % (tag, rel))
+        return rel, secs
+
+    tiles = sorted(batched)
+    relCard, secsCard = run(device, tiles, device + "_serial")
+    relCpu, secsCpu = run("cpu", tiles[:1], "cpu_serial_one")
+    phase(11, "fitQ on the card: per-tile route (model chunks of 16) on %d "
+          "tiles in %.2f s, max rel diff from the tile-batched route %.2e; "
+          "CPU float64 serial route on tile %s in %.2f s, max rel diff "
+          "%.2e (tolerance 1e-4, float32) (%s)"
+          % (len(tiles), secsCard, relCard, tiles[0], secsCpu, relCpu, card))
+
+
+def masses_phase(card, cfgPath, d, outDir, truth, device="cuda"):
+    """Phase 12: nemoMass on the card against nemoMass on the CPU (float64,
+    the plain Boltzmann solve), then calcMassBatch on MASS_ROWS seeded rows
+    (half photometric) on the card (float32) against the CPU (float64),
+    with the Eisenstein & Hu transfer for this comparison."""
+    import torch
+    from nemo_tpu_torch.cli import nemoMass_main
+    from nemo_tpu_torch.mock import MockSurvey
+    from nemo_tpu_torch.models import qfit, scaling
+    from nemo_tpu_torch.utils.tables import Table
+
+    t0 = time.perf_counter()
+    nemoMass_main.main([cfgPath, "--device", device])
+    secs = time.perf_counter() - t0
+    tab = Table.read(os.path.join(outDir, "%s_mass.fits"
+                                  % os.path.basename(outDir)))
+    m = np.asarray(tab["M500c"], dtype=float)
+    ok = np.asarray(tab["fixed_y_c"], dtype=float) > 0
+    if len(tab) < 0.8 * len(truth["RADeg"]) or not np.all(m[ok] > 0):
+        raise RuntimeError("nemoMass: %d rows, %d with M500c > 0"
+                           % (len(tab), int(np.sum(m > 0))))
+    cols = {c: np.asarray(tab[c], dtype=float)[ok]
+            for c in ("M500c", "M500cUncorr", "M500cCal", "M200m",
+                      "M500c_errPlus", "M500c_errMinus", "Q")}
+    if not all(np.all(np.isfinite(v)) for v in cols.values()):
+        raise RuntimeError("nemoMass wrote non-finite masses")
+    np.testing.assert_allclose(cols["M500cCal"], cols["M500c"] / 0.71,
+                               rtol=1e-6)
+    if not (np.all(cols["M200m"] > cols["M500c"])
+            and np.all(cols["M500cUncorr"] > 0)):
+        raise RuntimeError("nemoMass: M200m or Uncorr columns wrong")
+    zErr = np.asarray(tab["redshiftErr"], dtype=float)
+    phase(12, "nemoMass on the card: %d clusters matched to the redshift "
+          "catalog (%d photometric) in %.2f s; median M500c %.3f, "
+          "M500cUncorr %.3f, M500cCal %.3f, M200m %.3f x 1e14 MSun, "
+          "median Q %.3f (%s)"
+          % (len(tab), int(np.sum(zErr > 0)), secs,
+             *(float(np.median(cols[c])) for c in
+               ("M500c", "M500cUncorr", "M500cCal", "M200m", "Q")), card))
+
+    # the same catalog on the CPU in float64, its Boltzmann solve the
+    # plain version: the card's float32 ML point may move one fine-grid
+    # step (3e-4 dex, 7e-4 relative), and M200m and Cal follow M500c
+    cpuPath = os.path.join(WORK, "dr5", "mass_cpu.fits")
+    t0 = time.perf_counter()
+    nemoMass_main.main([cfgPath, "--device", "cpu", "-o", cpuPath])
+    cpuSecs = time.perf_counter() - t0
+    cpuTab = Table.read(cpuPath)
+    if list(np.asarray(cpuTab["name"])) != list(np.asarray(tab["name"])):
+        raise RuntimeError("nemoMass: the CPU run matched other rows")
+    massCols = ("M500c", "M500cUncorr", "M500cCal", "M200m")
+    rels = {c: float(np.max(np.abs(
+        cols[c] / np.asarray(cpuTab[c], dtype=float)[ok] - 1)))
+        for c in massCols}
+    if max(rels.values()) > 2e-3:
+        raise RuntimeError("nemoMass card vs CPU: max |ratio - 1| %s" % rels)
+    phase(12, "nemoMass on the CPU (float64, plain Boltzmann solve) in "
+          "%.2f s; card vs CPU max |ratio - 1|: %s (tolerance 2e-3: "
+          "float32) (%s)"
+          % (cpuSecs, ", ".join("%s %.2e" % (c, rels[c]) for c in massCols),
+             card))
+
+    rng = np.random.default_rng(SEED + 12)
+    y0 = rng.uniform(2e-5, 3e-4, MASS_ROWS)
+    rows = (y0, y0 / rng.uniform(4.0, 15.0, MASS_ROWS),
+            rng.uniform(0.1, 1.4, MASS_ROWS),
+            np.where(np.arange(MASS_ROWS) % 2 == 0, 0.0,
+                     rng.uniform(0.01, 0.05, MASS_ROWS)))
+    tiles = list(rng.choice(sorted(qfit_tables(os.path.join(
+        outDir, "selFn", "QFit.fits"))), MASS_ROWS))
+    Q = qfit.QFit(selFnDir=os.path.join(outDir, "selFn"))
+    kw = {k: DR5_MASS_OPTIONS[k] for k in ("tenToA0", "B0", "Mpivot",
+                                           "sigma_int")}
+    res, secs = {}, {}
+    for dev in (device, "cpu"):
+        ms = MockSurvey(1e13, 700.0, 0.0, 3.0, 70.0, 0.3, 0.05, 0.8, 0.95,
+                        transferFunction="eisenstein_hu", device=dev)
+        if dev == "cuda":       # warm the card's path
+            scaling.calcMassBatch(*(r[:64] for r in rows), Q, ms,
+                                  tileNames=tiles[:64], **kw)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[dev] = scaling.calcMassBatch(*rows, Q, ms, tileNames=tiles,
+                                         **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    c, p = res[device], res["cpu"]
+    # float32 on the card: the ML point may move one fine-grid step (3e-4
+    # dex) and the 68.3% crossing one or two, Q one mass-grid point
+    relM = float(np.max(np.abs(c["M500c"] / p["M500c"] - 1)))
+    errDiff = max(float(np.max(np.abs(c[k] - p[k]) / p["M500c"]))
+                  for k in ("M500c_errPlus", "M500c_errMinus",
+                            "M500cUncorr_errPlus"))
+    qDiff = float(np.max(np.abs(c["Q"] - p["Q"])))
+    if relM > 2e-3 or errDiff > 3e-3 or qDiff > 1e-2 \
+            or not np.all(np.isfinite(c["M500c"])):
+        raise RuntimeError("calcMassBatch card vs CPU: M %.2e, errors %.2e,"
+                           " Q %.2e" % (relM, errDiff, qDiff))
+    phase(12, "calcMassBatch, %d rows (half photometric): card %.3f s "
+          "(%.0f rows/s), CPU float64 %.3f s (%.0f rows/s); card vs CPU: "
+          "max |M500c ratio - 1| %.2e, max |error diff| / M500c %.2e, max "
+          "|Q diff| %.2e (tolerances 2e-3, 3e-3, 1e-2: float32) (%s)"
+          % (MASS_ROWS, secs[device], MASS_ROWS / secs[device],
+             secs["cpu"], MASS_ROWS / secs["cpu"], relM, errDiff, qDiff,
+             card))
+    return MASS_ROWS / secs[device]
 
 
 def main():
@@ -815,6 +1244,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from nemo_tpu_torch import cuda_build
+        from nemo_tpu_torch.models import boltzmann, cosmology
         from nemo_tpu_torch.ops import detect, noise
     except ImportError as exc:
         sys.exit("chip_smoke: the port is not importable from %s (%s)"
@@ -827,17 +1257,23 @@ def main():
              torch.cuda.device_count()))
 
     t0 = time.perf_counter()
-    sources = ("rms_cells.cu", "label_components.cu")
+    sources = ("rms_cells.cu", "label_components.cu", "boltzmann_rk4.cu")
     cuda_build.build(sources)
     noise.load_kernel()
     detect.load_label_kernel()
+    boltzmann.load_kernel()
     phase(2, "build: %s for sm_90a, in parallel, in %.2f s (nvcc %s)"
-          % (" and ".join(sources), time.perf_counter() - t0,
+          % (", ".join(sources), time.perf_counter() - t0,
              ", ".join("%.2f s" % cuda_build.BUILD_SECONDS.get(k, 0.0)
                        for k in sources)))
+    ptxas = [line.strip() for line in cuda_build.BUILD_LOGS.get(
+        "boltzmann_rk4.cu", "").splitlines()
+        if "registers" in line or "spill" in line]
+    phase(2, "ptxas, boltzmann_rk4: %s" % " | ".join(ptxas))
 
     rms = check_rms(noise, card)
     labelErr, labelMs, labelBound, labelBy = check_labels(detect, card)
+    boltz = check_boltzmann(boltzmann, cosmology, card)
 
     t0 = time.perf_counter()
     configDict, truth = make_inputs("cuda")
@@ -871,8 +1307,13 @@ def main():
         raise RuntimeError("too few clusters recovered (%d, %d)"
                            % (recovered, nCompared))
 
-    runs = batched_phases(noise, detect, card)
+    runs, surveyDict, surveyTruth = batched_phases(noise, detect, card)
     warm = runs["warm"][3]
+
+    cfgPath, dr5Dict, dr5Out, dr5Counts = epilogue_phase(
+        noise, detect, card, surveyDict, surveyTruth)
+    qfit_routes_phase(card, dr5Dict, dr5Out)
+    masses_phase(card, cfgPath, dr5Dict, dr5Out, surveyTruth)
 
     errs, flips, ms, bms, by = rms[("step", "float32")]
     ms1 = rms[("nT1", "float32")][2]
@@ -900,7 +1341,25 @@ def main():
         "ms": labelMs["kernel"], "plain_ms": labelMs["plain"],
         "bound_ms": labelBound, "bound_by": labelBy, "library_ms": None,
         "share_of_bound": labelBound / labelMs["kernel"],
-        "shape": "16 x 900 x 1536 S/N mask, 128 passes"}]}))
+        "shape": "16 x 900 x 1536 S/N mask, 128 passes"}, {
+        "name": "boltzmann_rk4", "route": "cuda",
+        "source": "nemo_tpu_torch/csrc/boltzmann_rk4.cu",
+        "replaces": "nemo_tpu/models/boltzmann.py:555 (XLA lax.scan, not a "
+                    "TPU kernel)",
+        "launches": dr5Counts["boltzmann"],
+        "max_abs_err": boltz["max_abs_err_24576_plain"],
+        "ms": boltz["ms24576"], "plain_ms": boltz["plain_ms24576"],
+        "bound_ms": boltz["bound_ms24576"],
+        "bound_by": boltz["bound_by24576"], "library_ms": None,
+        "share_of_bound": boltz["bound_ms24576"] / boltz["ms24576"],
+        "shape": "160 k, nGrid 24576, float64, one k a warp",
+        "max_rel_err": boltz["max_rel_err_24576_plain"],
+        "max_rel_err_vs_jax": boltz["max_rel_err_24576"],
+        "ms_nGrid4096": boltz["ms4096"],
+        "plain_ms_nGrid4096": boltz["plain_ms4096"],
+        "bound_ms_nGrid4096": boltz["bound_ms4096"],
+        "max_rel_err_nGrid4096": boltz["max_rel_err"],
+        "operations": boltz["ops24576"]}]}))
     print("total %.1f s" % (time.perf_counter() - tStart))
     print(card)
     print(json.dumps({"ok": True, "device": {

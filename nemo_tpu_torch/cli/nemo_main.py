@@ -3,19 +3,22 @@
 
 Same flags and output layout as ``nemo_tpu.cli.nemo_main``, plus
 ``--device``.  Runs the filter and catalog stage (per tile, or batched over
-tiles with ``useDeviceBatching: true``), then stitches the tiles' maps and
-makes quick-look maps as the JAX CLI does.  The stages that are not ported
-yet fail before any work (fitQ, the selection function, source injection)
-or are reported as skipped (the selection-function epilogue).
+tiles with ``useDeviceBatching: true``), then the epilogue as the JAX CLI
+does: the Q fit (``fitQ``), the RMS tables, the fRel weights and the fused
+selection-function products, the stitched and quick-look maps, and with
+``-S`` (or ``calcSelFn``) the completeness and mass-limit maps.  Source
+injection (``-I``) is not ported yet and fails before any work.
 
     python -m nemo_tpu_torch.cli.nemo_main config.yml --device cuda
 """
 
 import argparse
 import os
+import shutil
 import sys
 
-from nemo_tpu_torch import catalogs, maps, pipelines, startup
+from nemo_tpu_torch import catalogs, completeness, maps, pipelines, startup
+from nemo_tpu_torch.models import qfit
 from nemo_tpu_torch.utils.timing import GLOBAL_TIMER, profile_trace
 
 
@@ -25,7 +28,7 @@ def makeParser():
     parser.add_argument("-S", "--calc-selection-function", dest="calcSelFn",
                         action="store_true", default=False,
                         help="Calculate completeness in terms of cluster "
-                             "mass (not ported yet).")
+                             "mass; output under selFn/.")
     parser.add_argument("-I", "--run-source-injection-test",
                         dest="sourceInjectionTest", action="store_true",
                         default=False,
@@ -61,10 +64,6 @@ def makeParser():
 def _notPortedConfig(config, args):
     """Names of requested stages that the port does not run yet."""
     todo = []
-    if config.parDict.get("fitQ"):
-        todo.append("fitQ (ROADMAP.md queue 1, item 9)")
-    if config.parDict.get("calcSelFn"):
-        todo.append("calcSelFn / -S (ROADMAP.md queue 1, item 9)")
     if args.sourceInjectionTest or config.parDict.get("sourceInjectionTest"):
         todo.append("source injection / -I (ROADMAP.md queue 1, item 10)")
     return todo
@@ -109,8 +108,13 @@ def main(argv=None):
     else:
         print("... already made catalog %s" % optimalCatalogFileName)
 
-    print("... selection-function epilogue (makeRMSTables, getFRelWeights, "
-          "tidyUp) not ported yet (ROADMAP.md queue 1, item 9): skipped")
+    if config.parDict.get("photFilter") and config.parDict.get("fitQ"):
+        if not os.path.exists(os.path.join(config.selFnDir, "QFit.fits")):
+            with GLOBAL_TIMER.stage("fitQ"):
+                qfit.fitQ(config)
+
+    with GLOBAL_TIMER.stage("makeRMSTables"):
+        pipelines.makeRMSTables(config)
 
     if config.parDict.get("stitchTiles") and len(config.tileNames) > 1:
         with GLOBAL_TIMER.stage("stitchTiles"):
@@ -118,6 +122,20 @@ def main(argv=None):
     if config.parDict.get("makeQuickLookMaps"):
         with GLOBAL_TIMER.stage("makeQuickLookMaps"):
             maps.makeQuickLookMaps(config)
+
+    with GLOBAL_TIMER.stage("tidyUp"):
+        completeness.getFRelWeights(config)
+        completeness.tidyUp(config)
+
+    if config.parDict.get("calcSelFn"):
+        selFnConfigPath = os.path.join(config.selFnDir, "config.yml")
+        if not os.path.exists(selFnConfigPath):
+            shutil.copy(args.configFileName, selFnConfigPath)
+        with GLOBAL_TIMER.stage("completeness"):
+            completeness.completenessByFootprint(config)
+            selFnOptions = config.parDict.get("selFnOptions", {})
+            if selFnOptions.get("massLimitMaps"):
+                completeness.makeMassLimitMapsAndPlots(config)
 
     print(GLOBAL_TIMER.report())
     with open(os.path.join(config.diagnosticsDir, "timings.json"),

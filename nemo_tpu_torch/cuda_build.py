@@ -20,12 +20,16 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # -fmad=false: no fused multiply-adds, so each sum, product and clip
 # threshold rounds as the plain torch version's separate operations do.
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills (kept in BUILD_LOGS).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs = {}
 BUILD_SECONDS = {}
+BUILD_LOGS = {}
 
 
 def find_nvcc():
@@ -79,6 +83,7 @@ def _build_locked(sources):
     failed = []
     for source, lib_path, tmp, proc in procs:
         log, _ = proc.communicate()
+        BUILD_LOGS[source] = log
         if proc.returncode != 0:
             failed.append("nvcc failed for %s:\n%s" % (source, log))
             continue

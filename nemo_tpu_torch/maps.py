@@ -560,6 +560,22 @@ def subtractBackground(data, wcs, RADeg="centre", decDeg="centre",
 
 
 # -----------------------------------------------------------------------------
+def getPixelAreaArcmin2Map(shape, wcs):
+    """Pixel area in arcmin^2 vs position (``maps.py:1461-1482``)."""
+    RACentre, decCentre = wcs.getCentreWCSCoords()
+    x0, y0 = wcs.wcs2pix(RACentre, decCentre)
+    x1 = x0 + 1
+    ys = np.arange(shape[0], dtype=float)
+    ra0, dec0 = wcs.pix2wcs(np.full(shape[0], x0), ys)[:, 0], \
+        wcs.pix2wcs(np.full(shape[0], x0), ys)[:, 1]
+    ra1, dec1 = wcs.pix2wcs(np.full(shape[0], x1), ys + 1)[:, 0], \
+        wcs.pix2wcs(np.full(shape[0], x1), ys + 1)[:, 1]
+    xPixScale = calcAngSepDeg(ra0, dec0, ra1, dec0)
+    yPixScale = calcAngSepDeg(ra0, dec0, ra0, dec1)
+    pixAreas = xPixScale * yPixScale * 3600.0
+    return np.tile(pixAreas[:, None], (1, shape[1]))
+
+
 def shrinkWCS(origShape, origWCS, scaleFactor):
     """Downsampled (shape, WCS) for quick-look images (``nemo/maps.py:
     820-850``): scaleFactor 0.25 gives quarter resolution."""

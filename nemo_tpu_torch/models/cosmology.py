@@ -56,7 +56,7 @@ _BOLTZ_KGRID = np.logspace(np.log10(5e-3), np.log10(30.0), 160)
 
 
 @functools.lru_cache(maxsize=8)
-def _boltzmann_Tk_cached(H0, Om0, Ob0):
+def _boltzmann_Tk_cached(H0, Om0, Ob0, device):
     """Raw Boltzmann transfer on ``_BOLTZ_KGRID``, cached per background
     cosmology: sigma8 and ns only normalise/tilt the spectrum OUTSIDE
     the transfer, so SelFn.update / mass-inference loops that vary them
@@ -65,7 +65,7 @@ def _boltzmann_Tk_cached(H0, Om0, Ob0):
     from . import boltzmann
 
     Traw, _ = boltzmann.transfer_function(_BOLTZ_KGRID, H0=H0, Om0=Om0,
-                                          Ob0=Ob0)
+                                          Ob0=Ob0, device=device)
     return Traw
 
 
@@ -83,11 +83,13 @@ class FlatLCDM:
     """
 
     def __init__(self, H0=70.0, Om0=0.3, Ob0=0.05, sigma8=0.8, ns=0.95,
-                 zmax=12.0, ngrid=4096, transferFunction="eh98"):
+                 zmax=12.0, ngrid=4096, transferFunction="eh98",
+                 device="cuda"):
         if transferFunction not in ("eh98", "boltzmann"):
             raise ValueError("transferFunction must be 'eh98' or "
                              "'boltzmann'")
         self.transferFunction = transferFunction
+        self.device = str(device)   # where the Boltzmann solve runs
         self.H0 = float(H0)
         self.h = self.H0 / 100.0
         self.Om0 = float(Om0)
@@ -257,7 +259,7 @@ class FlatLCDM:
         kb = _BOLTZ_KGRID
         Traw = _boltzmann_Tk_cached(round(self.H0, 10),
                                     round(self.Om0, 10),
-                                    round(self.Ob0, 10))
+                                    round(self.Ob0, 10), self.device)
         Tb = np.abs(Traw) / kb ** 2     # strip the sub-horizon k^2
         Teh = self._eh98_transfer(k)
         TehB = self._eh98_transfer(kb)

@@ -6,7 +6,9 @@ detected and measured on the host; with ``useDeviceBatching: true`` the
 batched engine (:mod:`.parallel.engine`) filters chunks of tiles in one
 device call per (chunk, filter), optionally detecting objects on the
 device too, and streams each result into the same catalog stage.  The
-cached-RMS / cached-filtered-map reruns are not ported yet.
+cached-RMS-map and cached-filtered-map reruns (forced photometry, nemoMass)
+reload the selection-function products, and :func:`makeRMSTables` writes
+the noise-area tables the selection function reads.
 """
 
 import os
@@ -15,7 +17,8 @@ import time
 import numpy as np
 
 from . import catalogs, filters, maps, photometry
-from .utils.tables import vstack
+from .utils import fits as nfits
+from .utils.tables import Table, vstack
 from .utils.timing import GLOBAL_TIMER
 
 
@@ -78,11 +81,8 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                                verbose=True, writeAreaMask=False,
                                writeFlagMask=False):
     """Single-pass tile x filter loop."""
-    if useCachedRMSMap or useCachedFilteredMaps:
-        raise NotImplementedError(
-            "cached RMS-map / filtered-map reruns need the completeness "
-            "module, not ported yet (ROADMAP.md queue 1, item 9: Q fit, "
-            "selection function, masses)")
+    from . import completeness
+    from .ops import fourier
 
     if rootOutDir is not None:
         filteredMapsDir = os.path.join(rootOutDir, "filteredMaps")
@@ -102,6 +102,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                         if f["label"] == photFilter]
     filtersList += [f for f in config.parDict["mapFilters"]
                     if photFilter is None or f["label"] != photFilter]
+    undoPixelWindow = not useCachedRMSMap
 
     catalogDict = {}
     areaMaskDict = maps.TileDict({}, tileCoordsDict=config.tileCoordsDict)
@@ -110,9 +111,8 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
 
     def _processFilteredMap(f, tileName, filteredMapDict):
         """Everything downstream of one (tile, filter) filtered map:
-        optional map writes, detection or forced photometry, flux
-        measurement, catalog entry."""
-        from .utils import fits as nfits
+        cached-RMS S/N recompute, optional map writes, detection or forced
+        photometry, flux measurement, catalog entry."""
         label = f["label"] + "#" + tileName
         catalogDict[label] = {}
         if f["params"].get("saveDS9Regions"):
@@ -144,6 +144,22 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                     filteredMapDict["flagMask"], dtype=np.uint8)
             catalogDict[label]["catalog"] = catalog
             return
+
+        if useCachedRMSMap and photFilter is not None:
+            # S/N against the selection function's RMS map (the reference,
+            # pipelines.py:216-232), then the pixel window is undone
+            RMSMap, _ = completeness.loadRMSMap(tileName, config.selFnDir,
+                                                photFilter)
+            validMask = RMSMap > 0
+            SNMap = np.array(filteredMapDict["data"])
+            SNMap[validMask] = SNMap[validMask] / RMSMap[validMask]
+            filteredMapDict["SNMap"] = SNMap
+            mask = filteredMapDict["data"] == 0
+            d = fourier.apply_pixel_window(
+                config.policy.tensor(np.asarray(filteredMapDict["data"])),
+                pow=-1.0).cpu().numpy()
+            d[mask] = 0
+            filteredMapDict["data"] = d
 
         if f["params"].get("saveFilteredMaps"):
             filteredMapFileName = os.path.join(
@@ -213,7 +229,8 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 invertMap=invertMap)
         catalogDict[label]["catalog"] = catalog
 
-    if config.parDict.get("useDeviceBatching"):
+    if config.parDict.get("useDeviceBatching") and undoPixelWindow \
+            and not useCachedFilteredMaps:
         _runBatched(config, filtersList, catalogDict, photMaps,
                     _processFilteredMap, diagnosticsDir, useCachedFilters,
                     measureFluxes, invertMap, verbose)
@@ -225,13 +242,22 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
             label = f["label"] + "#" + tileName
             if "catalog" in catalogDict.get(label, {}):
                 continue    # already streamed through the batched engine
-            with GLOBAL_TIMER.stage("filterMaps"):
-                filteredMapDict = filters.filterMaps(
-                    config.unfilteredMapsDictList, f, tileName,
-                    diagnosticsDir=diagnosticsDir,
-                    selFnDir=config.selFnDir,
-                    verbose=True, undoPixelWindow=True,
-                    useCachedFilter=useCachedFilters, policy=config.policy)
+            filteredMapFileName = os.path.join(
+                filteredMapsDir, tileName, "%s_filteredMap.fits" % label)
+            if useCachedFilteredMaps and os.path.exists(filteredMapFileName):
+                filteredMapDict = _loadCachedFilteredMap(
+                    config, f, tileName, filteredMapFileName,
+                    os.path.join(filteredMapsDir, tileName,
+                                 "%s_SNMap.fits" % label))
+            else:
+                with GLOBAL_TIMER.stage("filterMaps"):
+                    filteredMapDict = filters.filterMaps(
+                        config.unfilteredMapsDictList, f, tileName,
+                        diagnosticsDir=diagnosticsDir,
+                        selFnDir=config.selFnDir, verbose=True,
+                        undoPixelWindow=undoPixelWindow,
+                        useCachedFilter=useCachedFilters,
+                        policy=config.policy)
             _processFilteredMap(f, tileName, filteredMapDict)
             del filteredMapDict
         photMaps.pop(tileName, None)
@@ -260,6 +286,99 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 config.origWCS, compressionType="PLIO_1")
 
     return optimalCatalog
+
+
+def _loadCachedFilteredMap(config, f, tileName, filteredMapFileName,
+                           SNMapFileName):
+    """A filtered map and its S/N map saved by an earlier run, with the
+    selection function's area mask, as the filter stage returns them."""
+    from . import completeness
+    from .utils.wcs import WCS
+
+    print("... loading cached filtered map %s" % filteredMapFileName)
+    data, header = nfits.read_image(filteredMapFileName)
+    filteredMapDict = {"data": np.asarray(data, dtype=np.float64),
+                       "wcs": WCS(header),
+                       "mapUnits": header.get("BUNIT", "yc")}
+    if "BEAMNSR" in header:
+        filteredMapDict["beamSolidAngle_nsr"] = header["BEAMNSR"]
+        filteredMapDict["obsFreqGHz"] = header["FREQGHZ"]
+    sn, _ = nfits.read_image(SNMapFileName)
+    filteredMapDict["SNMap"] = np.asarray(sn, dtype=np.float64)
+    filteredMapDict["surveyMask"], _ = completeness.loadAreaMask(
+        tileName, config.selFnDir)
+    filteredMapDict["flagMask"] = np.zeros(filteredMapDict["data"].shape,
+                                           dtype=np.uint8)
+    filteredMapDict["label"] = f["label"]
+    filteredMapDict["tileName"] = tileName
+    return filteredMapDict
+
+
+def makeRMSTables(config):
+    """Noise-level vs area tables per tile and footprint
+    (``pipelines.py:357-451``)."""
+    from . import completeness
+
+    if config.parDict["photFilter"] is None:
+        return None
+    photFilterLabel = config.parDict["photFilter"]
+
+    footprintsList = list(config.parDict.get("selFnFootprints", []))
+
+    selFnCollection = {"full": []}
+    for footprintDict in footprintsList:
+        selFnCollection.setdefault(footprintDict["label"], [])
+
+    for tileName in config.tileNames:
+        RMSTab = completeness.getRMSTab(tileName, photFilterLabel,
+                                        config.selFnDir)
+        selFnCollection["full"].append(
+            {"tileName": tileName, "RMSTab": RMSTab,
+             "tileAreaDeg2": float(np.sum(RMSTab["areaDeg2"]))})
+        for footprintDict in footprintsList:
+            completeness.makeIntersectionMask(
+                tileName, config.selFnDir, footprintDict["label"],
+                masksList=footprintDict["maskList"])
+            tileAreaDeg2 = completeness.getTileTotalAreaDeg2(
+                tileName, config.selFnDir,
+                footprintLabel=footprintDict["label"])
+            if tileAreaDeg2 > 0:
+                RMSTab = completeness.getRMSTab(
+                    tileName, photFilterLabel, config.selFnDir,
+                    footprintLabel=footprintDict["label"])
+                selFnCollection[footprintDict["label"]].append(
+                    {"tileName": tileName, "RMSTab": RMSTab,
+                     "tileAreaDeg2": float(np.sum(RMSTab["areaDeg2"]))})
+
+    for footprint in selFnCollection:
+        label = "" if footprint == "full" else "_" + footprint
+        outFileName = os.path.join(config.selFnDir,
+                                   "RMSTab%s.fits" % label)
+        tabList = []
+        for selFnDict in selFnCollection[footprint]:
+            tileTab = selFnDict["RMSTab"]
+            tileTab["tileName"] = np.array([selFnDict["tileName"]]
+                                           * len(tileTab))
+            tabList.append(tileTab)
+        if tabList:
+            tab = vstack(tabList)
+            tab.sort("y0RMS")
+            tab.write(outFileName)
+
+    # footprint columns on the catalog
+    catFileName = os.path.join(
+        config.rootOutDir,
+        "%s_optimalCatalog.fits" % os.path.split(config.rootOutDir)[-1])
+    if os.path.exists(catFileName) and footprintsList:
+        tab = Table.read(catFileName)
+        from .utils.wcs import WCS
+        for footprintDict in footprintsList:
+            for maskPath in footprintDict["maskList"]:
+                m, header = nfits.read_image(maskPath)
+                tab = catalogs.addFootprintColumnToCatalog(
+                    tab, footprintDict["label"], np.asarray(m), WCS(header))
+        catalogs.writeCatalog(tab, catFileName)
+        catalogs.writeCatalog(tab, catFileName.replace(".fits", ".csv"))
 
 
 def _runBatched(config, filtersList, catalogDict, photMaps,

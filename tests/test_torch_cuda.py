@@ -288,3 +288,38 @@ def test_batched_step_on_card_matches_cpu(cuda_card):
     r = ref["SNMap"].numpy()
     np.testing.assert_allclose(got32["SNMap"].cpu().numpy(), r, rtol=0,
                                atol=1e-3 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+def test_boltzmann_kernel_matches_plain(cuda_card):
+    """csrc/boltzmann_rk4.cu against its plain version on the card, 24 k
+    across the splice grid at nGrid 2,048: the same float64 arithmetic,
+    its exp and interpolation rounding apart (~1e-11 relative after 2,047
+    steps), held at 1e-9."""
+    from nemo_tpu_torch.models import boltzmann as tb
+    bg = tb._solver_tables(70.0, 0.3, 0.05, 2048)
+    k = torch.as_tensor(np.logspace(np.log10(5e-3), np.log10(30.0), 24),
+                        device=cuda_card)
+    launches = tb.transfer_function.launches
+    T, R0 = tb._transfer_cuda(k, bg)
+    torch.cuda.synchronize()
+    assert tb.transfer_function.launches == launches + 1
+    Tp, Rp = tb._transfer_plain(k, bg)
+    assert T.dtype == torch.float64 and T.shape == k.shape
+    np.testing.assert_allclose(T.cpu().numpy(), Tp.cpu().numpy(),
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(R0.cpu().numpy(), Rp.cpu().numpy(),
+                               rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_boltzmann_transfer_function_on_card(cuda_card):
+    """transfer_function(device="cuda") launches the kernel, never the
+    plain version, and returns host float64 arrays."""
+    from nemo_tpu_torch.models import boltzmann as tb
+    plain, launches = tb._transfer_plain.calls, tb.transfer_function.launches
+    T, d = tb.transfer_function([0.01, 0.1, 1.0], nGrid=2048, device="cuda")
+    assert tb.transfer_function.launches == launches + 1
+    assert tb._transfer_plain.calls == plain
+    assert T.dtype == np.float64 and np.all(np.isfinite(T))
+    assert d["R0"].shape == (3,)

@@ -15,13 +15,19 @@ import nemo_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Copied modules: identical to nemo_tpu's apart from import lines (and, in
-# utils/timing.py, the profiler: torch.profiler replaces jax.profiler).
+# utils/timing.py, the profiler: torch.profiler replaces jax.profiler; in
+# the DEVICE_THREADED modules, the explicit device passed down to the
+# Boltzmann solve).
 COPIED = ["utils/fits.py", "utils/wcs.py", "utils/tables.py",
           "utils/timing.py", "utils/__init__.py", "native/__init__.py",
           "native/rice_py.py", "native/rice.cpp", "ops/interp.py",
           "ops/hankel.py", "models/beams.py", "models/gnfw.py",
           "models/sz.py", "models/cosmology.py", "catalogs.py",
-          "photometry.py"]
+          "photometry.py", "mock.py", "plotSettings.py"]
+DEVICE_THREADED = ("models/cosmology.py", "mock.py")
+# a device argument, parameter or attribute, and the line that stores it
+_DEVICE_ARG = re.compile(r",\s*(self\.)?device\b(=[\w.\"']+)?")
+_DEVICE_LINE = re.compile(r"^\s*self\.device = .*\n", re.M)
 
 _IMPORT = re.compile(r"^\s*(import \w|from \S+ import )")
 
@@ -67,7 +73,12 @@ def test_port_imports_no_jax_and_no_nemo_tpu():
     # the batched engine and the device detection are covered
     for mod in ("nemo_tpu_torch.parallel.engine",
                 "nemo_tpu_torch.parallel.distribute",
-                "nemo_tpu_torch.ops.detect", "nemo_tpu_torch.completeness"):
+                "nemo_tpu_torch.ops.detect", "nemo_tpu_torch.completeness",
+                "nemo_tpu_torch.models.boltzmann",
+                "nemo_tpu_torch.models.qfit",
+                "nemo_tpu_torch.models.scaling", "nemo_tpu_torch.mock",
+                "nemo_tpu_torch.plotSettings",
+                "nemo_tpu_torch.cli.nemoMass_main"):
         assert mod in lines["NAMES"].split(), mod
     assert lines["HITS"] == "[]"
     assert lines["LEAKED"] == "[]"
@@ -94,6 +105,8 @@ def _normalised(path, rel):
         text = text[text.index('"""', 3) + 3:]
         text = text[:text.index("@contextlib.contextmanager\n"
                                 "def profile_trace")]
+    if rel in DEVICE_THREADED:
+        text = _DEVICE_ARG.sub("", _DEVICE_LINE.sub("", text))
     return [line for line in text.splitlines() if not _IMPORT.match(line)]
 
 
@@ -103,3 +116,13 @@ def test_copied_module_matches_source(rel):
     dst = _normalised(os.path.join(ROOT, "nemo_tpu_torch", rel), rel)
     assert dst == src, "nemo_tpu_torch/%s drifted from nemo_tpu/%s" % (rel,
                                                                         rel)
+
+
+def test_device_threading_is_all_that_differs():
+    """The device normalisation removes only what the port added: the JAX
+    modules name no device, and the port's copies pass one down."""
+    for rel in DEVICE_THREADED:
+        with open(os.path.join(ROOT, "nemo_tpu", rel)) as f:
+            assert "device" not in f.read(), rel
+        with open(os.path.join(ROOT, "nemo_tpu_torch", rel)) as f:
+            assert "device=" in f.read(), rel

@@ -86,13 +86,14 @@ def test_cli_runs_the_slice(both_runs, tmp_path):
                                rtol=1e-12)
     assert os.path.exists(str(tmp_path / "cli" / "diagnostics"
                               / "timings.json"))
-    cfg["fitQ"] = True
-    cfg["outputDir"] = str(tmp_path / "fitq")
+    cfg["sourceInjectionTest"] = True
+    cfg["outputDir"] = str(tmp_path / "inject")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
-    with pytest.raises(SystemExit, match="fitQ"):
+    with pytest.raises(SystemExit, match="source injection"):
         nemo_main.main([path, "--device", "cpu"])
-    assert not os.path.exists(str(tmp_path / "fitq" / "fitq_optimalCatalog.csv"))
+    assert not os.path.exists(str(tmp_path / "inject"
+                                  / "inject_optimalCatalog.csv"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             nemo_main.main([path, "--device", "cuda"])
