@@ -29,7 +29,9 @@ non-zero and prints no result):
     n_iter 128, 4000 and 37; boltzmann_rk4 on the 160-k splice grid at
     nGrid 4,096 (rtol 1e-9), timed plain, kernel, kernel, and at the
     production nGrid 24,576 against its plain version and the JAX
-    package's table in tests/data (rtol 1e-9);
+    package's table in tests/data (rtol 1e-9), each call's time beside
+    the kernel's own, and the kernel's time a step beside the length of
+    its dependent chain (latencies from the source's probe);
   4 inputs: seeded CMB + white noise + ~20 Arnaud clusters, written as
     FITS with beam files under _smoke_work/;
   5 the main path on the card (cuda, float32), with the kernel's launch
@@ -115,17 +117,30 @@ RMS_OPS_PER_PIXEL_STAGE = 7
 # operations per mask pixel and Jacobi pass: four minima and a compare
 LABEL_OPS_PER_PIXEL_PASS = 5
 # float64 operations of csrc/boltzmann_rk4.cu, counted from the source (each
-# +, -, *, /, compare, min, max and exp one operation): per derivative
-# evaluation the shared terms (matter, potentials, regime tests, the /Hc
-# of the 22 photon and 13 neutrino rates), the photon rates by regime
-# (streaming, tight coupling, full hierarchies), the neutrino rates by
-# regime and phi's streaming pin; per step the three background reads
-# (searchsorted, five lerps, exp), the abscissae, h_tau and the rate cap,
-# the RK4 stages and combine over 36 components, the relaxation's test
-# and, outside tight coupling, its update
-BOLTZ_OPS = {"derivs": 81 + 18 + 13, "photons_rsa": 39, "photons_tca": 58,
-             "photons_full": 82, "neutrinos_rsa": 29, "neutrinos_full": 67,
-             "phi_rsa": 17, "step": 3 * 27 + 3 + 2 + 468 + 3, "relax": 63}
+# +, -, *, /, negation, compare, min and max one operation), once for each
+# k however many lanes repeat them: per derivative evaluation the shared
+# terms (potentials 23, matter 17) and the /Hc of the 31 multipole rates,
+# the 31 rates by regime (photons: streaming, tight coupling with its slip,
+# full hierarchies; neutrinos: streaming, full) and phi's streaming pin;
+# per step the regime tests at three abscissae (27), the rate cap, the RK4
+# stages and combine over 36 components (468) and the relaxation's test,
+# and, outside tight coupling, its update.  "table" is the host's per-step
+# table (_step_tables), counted once a step, not once a k: exp and 18
+# derived values at the knot, the same after ~40 operations of lookup and
+# lerps at each of the two other abscissae, and the step's own 23.
+BOLTZ_OPS = {"derivs": 23 + 17 + 31, "photons_rsa": 38,
+             "photons_tca": 56, "photons_full": 70, "neutrinos_rsa": 28,
+             "neutrinos_full": 53, "phi_rsa": 15, "step": 27 + 1 + 468 + 3,
+             "relax": 38, "table": 19 + 2 * 59 + 23}
+# The dependent chain of one step outside tight coupling, from the source.
+# A quotient's reciprocal depends on its divisor alone (k^2, Hc, a table
+# value), known before the state, so a division adds three operations to
+# the chain (q = a r, the residual, the correction).  Each of the four
+# evaluations is a round of shuffles and 18 float64 operations deep
+# (th_g to mom, c15H2 mom / k^2, phi', the rate, its / Hc, the stage
+# input), the RK4 combine one more, the relaxation a round of shuffles and
+# 10 operations.  Tight coupling skips the relaxation.
+BOLTZ_CHAIN = {"shuffles": 5, "operations": 4 * 18 + 1 + 10}
 BOLTZ_REF = os.path.join(ROOT, "tests", "data",
                          "boltzmann_transfer_reference.json")
 
@@ -135,6 +150,18 @@ def bound(nbytes, ops, optype):
     tb = nbytes / HBM_BYTES_PER_S
     to = ops / PEAK_OPS_PER_S[optype]
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def ptxas_report(log, entry):
+    """ptxas's register and spill lines for the entry function whose
+    mangled name holds ``entry``."""
+    out, mine = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            mine = entry in line
+        elif mine and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return " | ".join(out)
 
 
 def time_ms(fn, reps):
@@ -381,21 +408,21 @@ def check_labels(detect, card):
 
 
 def boltzmann_ops(boltzmann, bg, k):
-    """float64 operations of one Boltzmann kernel launch on these inputs:
-    BOLTZ_OPS by the regime each k is in at each RK4 abscissa (the
-    kernel's own regime tests on the background tables)."""
-    h = float(bg.lna[1] - bg.lna[0])
-    import torch
-    x = torch.as_tensor(bg.lna[:-1], dtype=torch.float64)
+    """float64 operations of one Boltzmann solve on these inputs: the
+    per-step table once a step, and BOLTZ_OPS by the regime each k is in
+    at each RK4 abscissa (the kernel's own regime tests on the table)."""
+    tab = boltzmann._step_tables(bg)
+    nAb = len(boltzmann._AB)
     kk = np.asarray(k, dtype=np.float64)[:, None]
     o = BOLTZ_OPS
-    total = kk.size * x.shape[0] * o["step"]
-    for xx, evals in ((x, 1), (x + h / 2, 2), (x + h, 1)):
-        _, Hc, tau, kap, _, kD = boltzmann._background_at(bg, xx)
-        ktau = kk * tau
-        rsa = ((ktau > boltzmann.RSA_KTAU) & (kap < boltzmann.RSA_KAPPA * kk)) \
-            | ((ktau > 100.0) & (kk > 3.0 * kD))
-        tight = kap > boltzmann.TCA_FAC * np.maximum(kk, Hc)
+    total = tab.shape[0] * (o["table"] + kk.size * o["step"])
+    for j, evals in ((0, 1), (1, 2), (2, 1)):
+        b = dict(zip(boltzmann._AB, tab[:, j * nAb:(j + 1) * nAb].T))
+        ktau = kk * b["tau"]
+        rsa = ((ktau > boltzmann.RSA_KTAU)
+               & (b["kap"] < boltzmann.RSA_KAPPA * kk)) \
+            | ((ktau > 100.0) & (kk > 3.0 * b["kD"]))
+        tight = b["kap"] > boltzmann.TCA_FAC * np.maximum(kk, b["Hc"])
         tca = tight & ~rsa
         per = (o["derivs"]
                + np.where(rsa, o["photons_rsa"] + o["phi_rsa"],
@@ -403,9 +430,28 @@ def boltzmann_ops(boltzmann, bg, k):
                + np.where(ktau > boltzmann.RSA_KTAU, o["neutrinos_rsa"],
                           o["neutrinos_full"]))
         total += evals * int(per.sum())
-        if evals == 1 and xx is not x:      # the step's end: relaxation
+        if j == 2:                      # the step's end: relaxation
             total += o["relax"] * int((~tight).sum())
     return total
+
+
+def chain_latencies(boltzmann):
+    """ns per link of a dependent chain on the card, from the kernel
+    source's probe (one warp, 2^18 links, CUDA events): float64 add,
+    multiply and divide, and a shuffle of a double."""
+    import torch
+    lib = boltzmann.load_kernel()
+    out = torch.empty(32, dtype=torch.float64, device="cuda")
+    n = 1 << 18
+    res = {}
+    for op, name in enumerate(("add", "mul", "div", "shfl")):
+        def run(op=op):
+            err = lib.nemo_boltzmann_chain_probe(
+                op, n, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError("chain probe launch failed: %d" % err)
+        res[name] = 1e6 * time_ms(run, 3) / n
+    return res
 
 
 def check_boltzmann(boltzmann, cosmology, card):
@@ -413,9 +459,12 @@ def check_boltzmann(boltzmann, cosmology, card):
     grid at nGrid 4,096, timed plain, kernel, kernel (the plain version
     once: it takes ~40 s), then at the main path's nGrid 24,576 against
     the plain version (one run) and the JAX package's committed table.
-    All compared at rtol 1e-9: the same float64 arithmetic in the same
-    order, apart from exp and the interpolation's last bits (~1e-11 over
-    the integration).  Returns a dict of the measurements."""
+    All compared at rtol 1e-9: both versions read the same per-step table
+    and do the same float64 arithmetic in the same order, the kernel with
+    its lanes' operations in another grouping of the batch (~1e-12 over
+    the integration).  A call's time includes building and uploading the
+    per-step table; the kernel's own time is taken on a table already on
+    the card.  Returns a dict of the measurements."""
     import torch
     dev = torch.device("cuda")
     k = torch.as_tensor(cosmology._BOLTZ_KGRID, device=dev)
@@ -432,12 +481,30 @@ def check_boltzmann(boltzmann, cosmology, card):
         torch.cuda.synchronize()
         return [t.cpu().numpy() for t in out], start.elapsed_time(stop)
 
+    ieee = boltzmann.load_kernel(boltzmann.IEEE_DIV_BUILD)
+
+    def kernel_only(kk, g):
+        """The kernel alone on a table already on the card, and the build
+        with nvcc's `/` (which must give the same bits), in turns."""
+        tab = boltzmann._device_step_tables(g, dev)
+        fast, _ = boltzmann._launch(kk, tab, g)
+        slow, _ = boltzmann._launch(kk, tab, g, lib=ieee)
+        if not torch.equal(fast, slow):
+            raise RuntimeError("the branch-free division changed T")
+        ms = time_turns({
+            "kernel": lambda: boltzmann._launch(kk, tab, g),
+            "ieee": lambda: boltzmann._launch(kk, tab, g, lib=ieee)},
+            {"kernel": 1, "ieee": 1})
+        return ms["kernel"], ms["ieee"]
+
     (Tp, Rp), plainMs = timed(lambda: boltzmann._transfer_plain(k, bg))
     (T, R), t1 = timed(lambda: boltzmann._transfer_cuda(k, bg))
     _, t2 = timed(lambda: boltzmann._transfer_cuda(k, bg))
     np.testing.assert_allclose(T, Tp, rtol=1e-9, atol=0, err_msg="nGrid 4096")
     np.testing.assert_allclose(R, Rp, rtol=1e-9, atol=0, err_msg="nGrid 4096")
+    kms, ims = kernel_only(k, bg)
     res = {"ms4096": (t1 + t2) / 2, "plain_ms4096": plainMs,
+           "kernel_ms4096": kms, "ieee_div_ms4096": ims,
            "max_abs_err": float(np.max(np.abs(T - Tp))),
            "max_rel_err": float(np.max(np.abs(T / Tp - 1)))}
 
@@ -450,6 +517,14 @@ def check_boltzmann(boltzmann, cosmology, card):
     k24 = torch.as_tensor(np.array(ref["kMpc"]), device=dev)
     (T24, R24), t1 = timed(lambda: boltzmann._transfer_cuda(k24, bg24))
     _, t2 = timed(lambda: boltzmann._transfer_cuda(k24, bg24))
+    res["kernel_ms24576"], res["ieee_div_ms24576"] = kernel_only(k24, bg24)
+    # one k, one warp: the same time as 160 when one warp's instruction
+    # stream sets it
+    tab24 = boltzmann._device_step_tables(bg24, dev)
+    k1 = k24[-1:].contiguous()
+    res["kernel_ms24576_one_k"] = time_ms(
+        lambda: boltzmann._launch(k1, tab24, bg24), 1)
+    del tab24
     # the plain version once at the main path's nGrid (~4 minutes: its
     # time is the ~1,000 small launches of each of the 24,575 steps)
     (Tp24, Rp24), tp = timed(lambda: boltzmann._transfer_plain(k24, bg24))
@@ -466,22 +541,47 @@ def check_boltzmann(boltzmann, cosmology, card):
                max_abs_err_24576_plain=float(np.max(np.abs(T24 - Tp24))),
                max_rel_err_24576_plain=float(np.max(np.abs(T24 / Tp24 - 1))))
     for tag, g, kk in (("4096", bg, k), ("24576", bg24, k24)):
-        nbytes = 6 * g.lna.size * 8 + 3 * kk.numel() * 8
+        # the per-step table read once, the wavenumbers read and T, R0
+        # written once
+        nbytes = (g.lna.size - 1) * boltzmann.STEP_REC * 8 \
+            + 3 * kk.numel() * 8
         ops = boltzmann_ops(boltzmann, g, kk.cpu().numpy())
         res["ops" + tag] = ops
         res["bound_ms" + tag], res["bound_by" + tag] = bound(nbytes, ops,
                                                              "float64")
-    phase(3, "boltzmann_rk4 160 k: nGrid 4096 kernel %.3f ms, plain %.1f "
-          "ms, max rel err vs plain %.2e; nGrid 24576 kernel %.3f ms, plain "
-          "%.1f ms, max rel err vs plain %.2e, vs the JAX table %.2e; bound "
-          "%.4f / %.4f ms (%s: %.3g / %.3g float64 operations), kernel at "
-          "%.3f%% of it at 24576 (%s)"
-          % (res["ms4096"], res["plain_ms4096"], res["max_rel_err"],
-             res["ms24576"], res["plain_ms24576"],
-             res["max_rel_err_24576_plain"], res["max_rel_err_24576"],
-             res["bound_ms4096"], res["bound_ms24576"], res["bound_by24576"],
-             res["ops4096"], res["ops24576"],
-             100 * res["bound_ms24576"] / res["ms24576"], card))
+    lat = chain_latencies(boltzmann)
+    c = BOLTZ_CHAIN
+    chainNs = (c["shuffles"] * lat["shfl"]
+               + c["operations"] * (lat["add"] + lat["mul"]) / 2)
+    stepNs = 1e6 * res["kernel_ms24576"] / (bg24.lna.size - 1)
+    res.update(chain_ns_per_step=chainNs, kernel_ns_per_step=stepNs,
+               chain_latency_ns=lat)
+    phase(3, "boltzmann_rk4 160 k: nGrid 4096 call %.3f ms (kernel %.3f "
+          "ms; with nvcc's division %.3f ms), plain %.1f ms, max rel err vs "
+          "plain %.2e; nGrid 24576 call %.3f ms (kernel %.3f ms; with "
+          "nvcc's division %.3f ms, T bitwise equal), plain %.1f ms, max "
+          "rel err vs plain %.2e, vs the JAX table %.2e; bound %.4f / %.4f "
+          "ms (%s: %.3g / %.3g float64 operations), call at %.3f%% of it "
+          "at 24576 (%s)"
+          % (res["ms4096"], res["kernel_ms4096"], res["ieee_div_ms4096"],
+             res["plain_ms4096"], res["max_rel_err"], res["ms24576"],
+             res["kernel_ms24576"], res["ieee_div_ms24576"],
+             res["plain_ms24576"], res["max_rel_err_24576_plain"],
+             res["max_rel_err_24576"], res["bound_ms4096"],
+             res["bound_ms24576"], res["bound_by24576"], res["ops4096"],
+             res["ops24576"], 100 * res["bound_ms24576"] / res["ms24576"],
+             card))
+    phase(3, "boltzmann_rk4 dependent chain: links measured on one warp "
+          "(ns) add %.3f, mul %.3f, div %.3f (nvcc's, with its branch), "
+          "shuffle %.3f; a step outside tight coupling is %d shuffle rounds "
+          "+ %d float64 operations deep = %.1f ns; the kernel takes %.1f ns "
+          "a step at nGrid 24576 (%.2f x the chain; one k alone %.3f ms "
+          "against 160 k %.3f ms), against %.4f ns a step of bound (%s)"
+          % (lat["add"], lat["mul"], lat["div"], lat["shfl"],
+             c["shuffles"], c["operations"], chainNs, stepNs,
+             stepNs / chainNs, res["kernel_ms24576_one_k"],
+             res["kernel_ms24576"],
+             1e6 * res["bound_ms24576"] / (bg24.lna.size - 1), card))
     return res
 
 
@@ -1257,7 +1357,8 @@ def main():
              torch.cuda.device_count()))
 
     t0 = time.perf_counter()
-    sources = ("rms_cells.cu", "label_components.cu", "boltzmann_rk4.cu")
+    sources = ("rms_cells.cu", "label_components.cu", "boltzmann_rk4.cu",
+               boltzmann.IEEE_DIV_BUILD)
     cuda_build.build(sources)
     noise.load_kernel()
     detect.load_label_kernel()
@@ -1266,10 +1367,9 @@ def main():
           % (", ".join(sources), time.perf_counter() - t0,
              ", ".join("%.2f s" % cuda_build.BUILD_SECONDS.get(k, 0.0)
                        for k in sources)))
-    ptxas = [line.strip() for line in cuda_build.BUILD_LOGS.get(
-        "boltzmann_rk4.cu", "").splitlines()
-        if "registers" in line or "spill" in line]
-    phase(2, "ptxas, boltzmann_rk4: %s" % " | ".join(ptxas))
+    phase(2, "ptxas, boltzmann_rk4: %s" % ptxas_report(
+        cuda_build.BUILD_LOGS.get("boltzmann_rk4.cu", ""),
+        "boltzmann_rk4_kernel"))
 
     rms = check_rms(noise, card)
     labelErr, labelMs, labelBound, labelBy = check_labels(detect, card)
@@ -1352,10 +1452,20 @@ def main():
         "bound_ms": boltz["bound_ms24576"],
         "bound_by": boltz["bound_by24576"], "library_ms": None,
         "share_of_bound": boltz["bound_ms24576"] / boltz["ms24576"],
-        "shape": "160 k, nGrid 24576, float64, one k a warp",
+        "shape": "160 k, nGrid 24576, float64, one warp a k, a multipole "
+                 "a lane; ms is the call (per-step table built, uploaded, "
+                 "one launch)",
+        "ms_kernel_only": boltz["kernel_ms24576"],
+        "ms_kernel_nvcc_division": boltz["ieee_div_ms24576"],
+        "ms_kernel_one_k": boltz["kernel_ms24576_one_k"],
+        "chain_ns_per_step": boltz["chain_ns_per_step"],
+        "kernel_ns_per_step": boltz["kernel_ns_per_step"],
+        "chain_latency_ns": boltz["chain_latency_ns"],
         "max_rel_err": boltz["max_rel_err_24576_plain"],
         "max_rel_err_vs_jax": boltz["max_rel_err_24576"],
         "ms_nGrid4096": boltz["ms4096"],
+        "ms_kernel_only_nGrid4096": boltz["kernel_ms4096"],
+        "ms_kernel_nvcc_division_nGrid4096": boltz["ieee_div_ms4096"],
         "plain_ms_nGrid4096": boltz["plain_ms4096"],
         "bound_ms_nGrid4096": boltz["bound_ms4096"],
         "max_rel_err_nGrid4096": boltz["max_rel_err"],

@@ -47,21 +47,31 @@ def find_nvcc():
                        "built on this machine")
 
 
+def _split(source):
+    """(file name, nvcc -D flags) of a build name: ``"x.cu"``, or
+    ``"x.cu -DNAME"`` for the same source built with a macro defined."""
+    name, *defines = source.split()
+    return name, defines
+
+
 def _lib_path(source):
     """(source path, library path) of ``csrc/<source>``; the library's name
-    carries a hash of the source and the flags."""
-    path = os.path.join(CSRC_DIR, source)
+    carries a hash of the source, the flags and the defines."""
+    name, defines = _split(source)
+    path = os.path.join(CSRC_DIR, name)
     with open(path, "rb") as f:
         src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS + defines).encode()
+                         ).hexdigest()
     return path, os.path.join(BUILD_DIR, "%s_%s.so"
-                              % (os.path.splitext(source)[0], key[:16]))
+                              % (os.path.splitext(name)[0], key[:16]))
 
 
 def build(sources):
     """Compile every ``csrc/<source>`` whose library is missing, one nvcc
-    process each, all started together.  Raises RuntimeError naming every
-    source that failed to build."""
+    process each, all started together.  A source may name -D flags after
+    the file name.  Raises RuntimeError naming every source that failed to
+    build."""
     with _lock:
         _build_locked(sources)
 
@@ -78,8 +88,8 @@ def _build_locked(sources):
     for source, path, lib_path in todo:
         tmp = "%s.%d.tmp" % (lib_path, os.getpid())
         procs.append((source, lib_path, tmp, subprocess.Popen(
-            [nvcc] + NVCC_FLAGS + ["-o", tmp, path], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+            [nvcc] + NVCC_FLAGS + _split(source)[1] + ["-o", tmp, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for source, lib_path, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -94,8 +104,9 @@ def _build_locked(sources):
 
 
 def load_library(source, declare):
-    """Build (if needed) and load ``csrc/<source>``; ``declare(lib)`` sets
-    the ctypes signatures.  Raises RuntimeError if the build fails."""
+    """Build (if needed) and load ``csrc/<source>`` (a file name, and any
+    -D flags after it); ``declare(lib)`` sets the ctypes signatures.
+    Raises RuntimeError if the build fails."""
     with _lock:
         if source in _libs:
             return _libs[source]

@@ -8,17 +8,24 @@ l = 12) with the tight-coupling and radiation-streaming regimes and the
 exact per-step Thomson relaxation, integrated by fixed-step RK4 in ln a
 from ln a = -19.5 to 0 - is the JAX package's, step for step.
 
-Two versions of the solve:
+Two versions of the solve, both reading one per-step table
+(:func:`_step_tables`: every value that depends on the step and not on
+k - the background at the three RK4 abscissae by ``jnp.interp``'s rule,
+what the reference derives from it alone, and the relaxation's
+exponentials - built once per cosmology on the host, each value the
+reference's expression):
 
 * :func:`_transfer_plain`, plain torch: every k at once as a batch
   dimension, the scan written as a Python loop over the ``nGrid - 1``
-  steps.  The background values at each step's three RK4 abscissae are
-  interpolated once, before the loop, with ``jnp.interp``'s formula.
-* ``csrc/boltzmann_rk4.cu``, the hand-written CUDA kernel: one thread
-  integrates one k through every step in one launch (the scan on the hot
-  path is a kernel; eager torch would launch ~10^7 small kernels per
-  cosmology).  It interpolates the background tables itself with the
-  same formula and index rule.
+  steps.
+* ``csrc/boltzmann_rk4.cu``, the hand-written CUDA kernel: one warp a k,
+  in one launch, the 31 photon and neutrino multipoles one a lane and the
+  five matter and metric components replicated on every lane; the table
+  is uploaded step-major and each warp reads the same record at the same
+  step.  The time is one warp's dependent instruction stream (160 k fill
+  160 of the card's 528 schedulers), so each evaluation is straight-line
+  code for its regime and divides with nvcc's own fast sequence, without
+  the branch that kept the divisions from overlapping (see the source).
 
 :func:`transfer_function` launches the kernel for ``device="cuda"`` (and
 raises if the build or launch fails) and runs the plain version for
@@ -228,35 +235,99 @@ I_N = I_G + LG + 1        # N_0..N_LN
 # background tables, in this order, interpolated in ln a
 _TABLES = ("Hc", "tau", "kappa_dot", "cs2_b", "kD")
 
+# The per-step table (:func:`_step_tables`): one record of STEP_REC doubles
+# a step, three blocks of _AB values (at the RK4 abscissae x, x + h/2 and
+# x + h), then the step's own values _PER_STEP.  csrc/boltzmann_rk4.cu
+# names the same columns in the same order (enums Ab and Step).
+_AB = ("a", "Hc", "tau", "kap", "cs2", "kD", "w_c", "w_b", "w_g", "w_n",
+       "Rb", "relRate", "tauMax", "cLG", "cLN", "Rb1", "slipDen", "kapMax")
+_PER_STEP = ("h_tau", "relax", "RbR", "Rb1R", "E1", "Ed", "E03", "E03mE1",
+             "RbFrac", "invRb1")
+STEP_REC = 3 * len(_AB) + len(_PER_STEP)
+_COL = {name: j for j, name in enumerate(_PER_STEP, start=3 * len(_AB))}
+
 
 def _interp_tables(x, lna, tabs):
     """``jnp.interp`` of each row of ``tabs`` (m, n) at the points ``x``
-    (float64 tensors), formula for formula: index from
+    (float64 numpy), formula for formula: index from
     ``searchsorted(side="right")`` clamped to [1, n-1], then
     ``f0 + (delta / dx) * df``, with the end values outside the table.
     Returns (m, len(x))."""
     n = lna.shape[0]
-    i = torch.clamp(torch.searchsorted(lna, x, right=True), 1, n - 1)
+    i = np.clip(np.searchsorted(lna, x, side="right"), 1, n - 1)
     x0 = lna[i - 1]
     dx = lna[i] - x0
-    delta = x - x0
-    eps = np.spacing(np.finfo(np.float64).eps)
-    dx0 = torch.abs(dx) <= eps
-    ratio = delta / torch.where(dx0, torch.ones_like(dx), dx)
-    f0 = tabs[:, i - 1]
-    f = torch.where(dx0, f0, f0 + ratio * (tabs[:, i] - f0))
-    f = torch.where(x < lna[0], tabs[:, :1], f)
-    return torch.where(x > lna[-1], tabs[:, -1:], f)
+    dx0 = np.abs(dx) <= np.spacing(np.finfo(np.float64).eps)
+    ratio = (x - x0) / np.where(dx0, 1.0, dx)
+    f0 = np.take(tabs, i - 1, axis=1)
+    f = np.where(dx0, f0, f0 + ratio * (np.take(tabs, i, axis=1) - f0))
+    f = np.where(x < lna[0], tabs[:, :1], f)
+    return np.where(x > lna[-1], tabs[:, -1:], f)
 
 
-def _background_at(bg, x):
-    """Per-point background scalars at the float64 CPU tensor ``x``:
-    numpy arrays a, Hc, tau, kap, cs2, kD."""
-    lna = torch.as_tensor(bg.lna, dtype=torch.float64)
-    tabs = torch.as_tensor(np.stack([getattr(bg, t) for t in _TABLES]),
-                           dtype=torch.float64)
-    vals = _interp_tables(x, lna, tabs).numpy()
-    return (torch.exp(x).numpy(),) + tuple(vals)
+def _step_tables(bg):
+    """Every value of the solve that depends on the step and not on k, as
+    a (nGrid - 1, STEP_REC) float64 numpy array, one record a step (a view
+    of a column-major buffer: ``.T`` is contiguous).
+
+    At each RK4 abscissa (x, x + h/2, x + h) the background (a = exp(x),
+    then Hc, tau, kap, cs2, kD by ``jnp.interp``'s rule) and what the
+    reference derives from it alone; per step the relaxation's h_tau and
+    rate cap and, at the step's end, its Rb and exponentials.  Each value
+    is the reference's expression, with the same operands in the same
+    order, so the plain version and the kernel, which both read this
+    table, compute the same products.  At x, a knot, the rule gives the
+    knot's values: f0 + (0 / dx) * df is f0."""
+    c = _constants(bg)
+    h = c["h"]
+    tabs = np.stack([getattr(bg, t) for t in _TABLES])
+    x = bg.lna[:-1]
+    nSteps = x.shape[0]
+    cols = np.empty((STEP_REC, nSteps))
+    mid = _interp_tables(np.concatenate([x + h / 2, x + h]), bg.lna, tabs)
+    blocks = []
+    for j, xx in enumerate((x, x + h / 2, x + h)):
+        Hc, tau, kap, cs2, kD = (tabs[:, :-1] if j == 0 else
+                                 mid[:, (j - 1) * nSteps:j * nSteps])
+        a = np.exp(xx)
+        w_b, w_g = c["Ob0"] / a, c["Og0"] / (a * a)
+        Rb = 0.75 * (w_b / w_g)
+        tauMax = np.maximum(tau, 1e-30)
+        blocks.append({"a": a, "Hc": Hc, "tau": tau, "kap": kap, "cs2": cs2,
+                       "kD": kD, "w_c": c["Oc0"] / a, "w_b": w_b, "w_g": w_g,
+                       "w_n": c["On0"] / (a * a), "Rb": Rb,
+                       "tauMax": tauMax, "cLG": (LG + 1) / tauMax,
+                       "cLN": (LN + 1) / tauMax, "Rb1": 1.0 + Rb,
+                       "slipDen": kap * (1.0 + 1.0 / np.maximum(Rb, 1e-30)),
+                       "kapMax": np.maximum(kap, 1e-30)})
+    h_tau = h / blocks[0]["Hc"]
+    relax = 0.5 / h_tau
+    for j, b in enumerate(blocks):
+        b["relRate"] = np.minimum(b["kap"], relax)
+        for i, name in enumerate(_AB):
+            cols[j * len(_AB) + i] = b[name]
+    # the relaxation at the step's end (its Rb is written as the
+    # reference's relax_step writes it, which rounds otherwise than the
+    # derivatives' 0.75 * (w_b / w_g))
+    end = blocks[2]
+    a = end["a"]
+    RbR = 0.75 * (c["Ob0"] / a) / (c["Og0"] / (a * a))
+    kh = end["kap"] * h_tau
+    E1 = np.exp(-kh)
+    E03 = np.exp(-0.3 * kh)
+    per = {"h_tau": h_tau, "relax": relax, "RbR": RbR, "Rb1R": 1.0 + RbR,
+           "E1": E1, "Ed": np.exp(-kh * (1.0 + 1.0 / np.maximum(RbR, 1e-30))),
+           "E03": E03, "E03mE1": E03 - E1, "RbFrac": RbR / (1.0 + RbR),
+           "invRb1": 1.0 / (1.0 + RbR)}
+    for name, j in _COL.items():
+        cols[j] = per[name]
+    return cols.T
+
+
+def _abscissa(rec, j):
+    """Block ``j`` (0: x, 1: x + h/2, 2: x + h) of one step's record, as a
+    dict of Python floats."""
+    return dict(zip(_AB, rec[j * len(_AB):(j + 1) * len(_AB)]))
 
 
 def _constants(bg):
@@ -292,20 +363,17 @@ class _System:
         self.lN, self.lN1 = lN, lN + 1
 
     def derivs(self, b, y, relax):
-        """dy/dlna for every k; ``b`` = (a, Hc, tau, kap, cs2, kD) at this
-        abscissa (Python floats), ``relax`` the step's rate cap."""
+        """dy/dlna for every k; ``b`` the per-step table's block at this
+        abscissa (a dict of floats, see :func:`_step_tables`), ``relax``
+        the step's rate cap."""
         c, kk, kk2 = self.c, self.kk, self.kk2
-        a, Hc, tau, kap, cs2, kD = b
+        Hc, tau, kap, cs2, kD = b["Hc"], b["tau"], b["kap"], b["cs2"], b["kD"]
+        w_c, w_b, w_g, w_n = b["w_c"], b["w_b"], b["w_g"], b["w_n"]
         phi = y[:, I_PHI]
         dc, tc, db, tb = y[:, I_DC], y[:, I_TC], y[:, I_DB], y[:, I_TB]
         F = y[:, I_F:I_F + LG + 1]
         G = y[:, I_G:I_G + LG + 1]
         N = y[:, I_N:I_N + LN + 1]
-
-        w_c = c["Oc0"] / a
-        w_b = c["Ob0"] / a
-        w_g = c["Og0"] / (a * a)
-        w_n = c["On0"] / (a * a)
 
         th_g = 0.75 * kk * F[:, 1]
         th_n = 0.75 * kk * N[:, 1]
@@ -317,7 +385,6 @@ class _System:
         phi_dot = (-Hc * psi + (c["c15H2"] * mom) / kk2)
         dphi = phi_dot / Hc
 
-        Rb = 0.75 * (w_b / w_g)
         tca = kap > TCA_FAC * torch.clamp(kk, min=Hc)
         rsa = ((kk * tau > RSA_KTAU) & (kap < RSA_KAPPA * kk)) \
             | ((kk * tau > 100.0) & (kk > 3.0 * kD))
@@ -330,15 +397,14 @@ class _System:
         d_dc = (-tc) / Hc + 3 * dphi
         d_tc = (-Hc * tc + kk2 * psi) / Hc
         slipNum = kk2 * (F[:, 0] / 4.0 - sig_g) - cs2 * kk2 * db + Hc * tb
-        slip = slipNum / (kap * (1.0 + 1.0 / max(Rb, 1e-30)))
+        slip = slipNum / b["slipDen"]
         tb_full = (-Hc * tb + cs2 * kk2 * db + kk2 * psi)
-        tb_tca = tb_full + slipNum / (1.0 + Rb)
+        tb_tca = tb_full + slipNum / b["Rb1"]
         d_tb = torch.where(tca, tb_tca, tb_full) / Hc
         d_db = (-tb) / Hc + 3 * dphi
 
         # photons: the full hierarchies (the JAX package's kapEff terms are
         # products with 0.0 and are left out)
-        tauMax = max(tau, 1e-30)
         dF0 = -kk * F[:, 1] + 4 * phi_dot
         dF_full = torch.cat([
             dF0[:, None],
@@ -346,19 +412,19 @@ class _System:
              + (4 * kk / 3.0) * psi)[:, None],
             ((kk / 5.0) * (2 * F[:, 1] - 3 * F[:, 3]))[:, None],
             self.kkF * (self.lF * F[:, 2:LG - 1] - self.lF1 * F[:, 4:LG + 1]),
-            (kk * F[:, LG - 1] - ((LG + 1) / tauMax) * F[:, LG])[:, None]],
+            (kk * F[:, LG - 1] - b["cLG"] * F[:, LG])[:, None]],
             dim=1)
         dG_full = torch.cat([
             (-kk * G[:, 1])[:, None],
             ((kk / 3.0) * (G[:, 0] - 2 * G[:, 2]))[:, None],
             ((kk / 5.0) * (2 * G[:, 1] - 3 * G[:, 3]))[:, None],
             self.kkF * (self.lF * G[:, 2:LG - 1] - self.lF1 * G[:, 4:LG + 1]),
-            (kk * G[:, LG - 1] - ((LG + 1) / tauMax) * G[:, LG])[:, None]],
+            (kk * G[:, LG - 1] - b["cLG"] * G[:, LG])[:, None]],
             dim=1)
 
         # tight coupling
-        relRate = min(kap, relax)
-        F2_tca = (8.0 / 15.0) * (kk / max(kap, 1e-30)) * F[:, 1]
+        relRate = b["relRate"]
+        F2_tca = (8.0 / 15.0) * (kk / b["kapMax"]) * F[:, 1]
         tcaTgtF = torch.zeros_like(F)
         tcaTgtF[:, 1] = (4.0 / (3 * kk)) * (tb + slip)
         tcaTgtF[:, 2] = F2_tca
@@ -388,7 +454,7 @@ class _System:
             ((kk / 3.0) * (N[:, 0] - 2 * N[:, 2])
              + (4 * kk / 3.0) * psi)[:, None],
             self.kkN * (self.lN * N[:, 1:LN - 1] - self.lN1 * N[:, 3:LN + 1]),
-            (kk * N[:, LN - 1] - ((LN + 1) / tauMax) * N[:, LN])[:, None]],
+            (kk * N[:, LN - 1] - b["cLN"] * N[:, LN])[:, None]],
             dim=1)
         rsaTgtN = torch.zeros_like(N)
         rsaTgtN[:, 0] = -4.0 * psi
@@ -433,26 +499,22 @@ class _System:
             + (c["On0"] / a2) * (y[:, I_N + 2] / 2.0))
         return phi + (2.0 / (3.0 * (1.0 + w_tot))) * psi
 
-    def relax_step(self, y, b, h_tau):
+    def relax_step(self, y, s, be):
         """Exact Thomson relaxation over one step, outside tight coupling;
-        ``b`` is the background at the step's end."""
-        c, kk = self.c, self.kk
-        a, Hc, _, kap, _, _ = b
-        Rb = 0.75 * (c["Ob0"] / a) / (c["Og0"] / (a * a))
-        tca = kap > TCA_FAC * torch.clamp(kk, min=Hc)
+        ``s`` the step's own values and ``be`` the table's block at the
+        step's end (see :func:`_step_tables`)."""
+        kk = self.kk
+        tca = be["kap"] > TCA_FAC * torch.clamp(kk, min=be["Hc"])
         F = y[:, I_F:I_F + LG + 1]
         G = y[:, I_G:I_G + LG + 1]
         tb = y[:, I_TB]
         th_g = 0.75 * kk * F[:, 1]
-        kh = kap * h_tau
-        E1 = math.exp(-kh)
-        Ed = math.exp(-kh * (1.0 + 1.0 / max(Rb, 1e-30)))
-        thBar = (th_g + Rb * tb) / (1.0 + Rb)
-        S = (th_g - tb) * Ed
-        th_gN = thBar + (Rb / (1.0 + Rb)) * S
-        tbN = thBar - (1.0 / (1.0 + Rb)) * S
-        E03 = math.exp(-0.3 * kh)
-        fac = (F[:, 2] + G[:, 0] + G[:, 2]) * (E03 - E1) / 0.7
+        E1 = s["E1"]
+        thBar = (th_g + s["RbR"] * tb) / s["Rb1R"]
+        S = (th_g - tb) * s["Ed"]
+        th_gN = thBar + s["RbFrac"] * S
+        tbN = thBar - s["invRb1"] * S
+        fac = (F[:, 2] + G[:, 0] + G[:, 2]) * s["E03mE1"] / 0.7
         yN = y * E1
         yN[:, :I_TB] = y[:, :I_TB]
         yN[:, I_TB] = tbN
@@ -464,28 +526,23 @@ class _System:
         yN[:, I_N:] = y[:, I_N:]
         return torch.where(tca[:, None], y, yN)
 
-    def steps(self, y, every=0):
-        """``nGrid - 1`` RK4 steps from ``y``, each followed by the
-        relaxation; yields (step index, state) after every ``every``-th
-        step when ``every`` > 0, and returns the final state."""
-        bg, h = self.bg, self.c["h"]
-        lna = torch.as_tensor(bg.lna, dtype=torch.float64)
-        x = lna[:-1]
-        b0, bm, be = (_background_at(bg, xx) for xx in
-                      (x, x + h / 2, x + h))
+    def steps(self, y, tab, every=0):
+        """The ``nGrid - 1`` RK4 steps of the per-step table ``tab`` from
+        ``y``, each followed by the relaxation; returns the final state and
+        (step index, state) after every ``every``-th step when ``every`` >
+        0."""
+        h = self.c["h"]
         snaps = []
-        for i in range(x.shape[0]):
-            s0 = tuple(float(v[i]) for v in b0)
-            sm = tuple(float(v[i]) for v in bm)
-            se = tuple(float(v[i]) for v in be)
-            h_tau = h / s0[1]
-            relax = 0.5 / h_tau
-            k1 = self.derivs(s0, y, relax)
-            k2 = self.derivs(sm, y + h / 2 * k1, relax)
-            k3 = self.derivs(sm, y + h / 2 * k2, relax)
-            k4 = self.derivs(se, y + h * k3, relax)
+        for i, rec in enumerate(tab.tolist()):
+            b0, bm, be = (_abscissa(rec, j) for j in range(3))
+            s = {name: rec[j] for name, j in _COL.items()}
+            relax = s["relax"]
+            k1 = self.derivs(b0, y, relax)
+            k2 = self.derivs(bm, y + h / 2 * k1, relax)
+            k3 = self.derivs(bm, y + h / 2 * k2, relax)
+            k4 = self.derivs(be, y + h * k3, relax)
             yN = y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
-            y = self.relax_step(yN, se, h_tau)
+            y = self.relax_step(yN, s, be)
             if every and i % every == 0:
                 snaps.append((i, y))
         return y, snaps
@@ -495,10 +552,11 @@ def _transfer_plain(kk, bg):
     """Plain torch solve for float64 ``kk`` (nk,) on its device: (T, R0)
     tensors."""
     _transfer_plain.calls += 1
+    tab = _step_tables(bg)
     sysd = _System(bg, kk)
     y0 = sysd.initial_state()
-    R0 = sysd.comoving_curvature(y0, math.exp(float(bg.lna[0])))
-    yF, _ = sysd.steps(y0)
+    R0 = sysd.comoving_curvature(y0, _abscissa(tab[0], 0)["a"])
+    yF, _ = sysd.steps(y0, tab)
     c = sysd.c
     dm = (c["Oc0"] * yF[:, I_DC] + c["Ob0"] * yF[:, I_DB]) / c["OcOb"]
     return dm / R0, R0
@@ -518,31 +576,54 @@ def _declare(lib):
     fn = lib.nemo_boltzmann_rk4
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p]
+    div = lib.nemo_boltzmann_divide
+    div.restype = ctypes.c_int
+    div.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    probe = lib.nemo_boltzmann_chain_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p]
 
 
-def load_kernel():
+# the kernel built with nvcc's `/` in place of its branch-free division
+# (the same results; chip_smoke.py times the two builds)
+IEEE_DIV_BUILD = "boltzmann_rk4.cu -DNEMO_BOLTZ_IEEE_DIV"
+
+
+def load_kernel(source="boltzmann_rk4.cu"):
     """Build (first call) and load the Boltzmann kernel's library."""
-    return cuda_build.load_library("boltzmann_rk4.cu", _declare)
+    return cuda_build.load_library(source, _declare)
 
 
-def _device_tables(bg, device):
-    """(6, nGrid) float64 tensor on ``device``: ln a, then the
-    background tables in :data:`_TABLES` order."""
-    return torch.as_tensor(
-        np.stack([bg.lna] + [getattr(bg, t) for t in _TABLES]),
-        dtype=torch.float64, device=device).contiguous()
+def _snapshots(nSteps, every):
+    """Count of the states kept every ``every`` steps (after steps 0,
+    every, 2 every, ...)."""
+    return (nSteps + every - 1) // every
 
 
-def _transfer_cuda(kk, bg):
-    """The kernel: (T, R0) tensors on ``kk``'s card, every k on a warp of
-    its own."""
-    if not kk.is_cuda:
-        raise ValueError("the CUDA Boltzmann kernel needs CUDA tensors")
-    lib = load_kernel()
-    kk = kk.to(torch.float64).contiguous()
-    tabs = _device_tables(bg, kk.device)
+def _launch(kk, tab, bg, snap=None, every=0, lib=None):
+    """One launch of the kernel: float64 CUDA tensors ``kk`` (nk,) and the
+    per-step table ``tab`` (nGrid - 1, STEP_REC) on its card; returns (T,
+    R0).  With ``snap`` (nk, nSnap, NV), the state after every ``every``-th
+    step is written there too.  ``lib``: another build of the kernel."""
+    nSteps = tab.shape[0]
+    if (tab.dtype != torch.float64 or tab.device != kk.device
+            or tuple(tab.shape) != (nSteps, STEP_REC)
+            or not tab.is_contiguous()):
+        raise ValueError("the per-step table must be a contiguous (nSteps, "
+                         "%d) float64 tensor on the wavenumbers' device"
+                         % STEP_REC)
+    if snap is not None and (
+            every < 1 or snap.dtype != torch.float64
+            or snap.device != kk.device or not snap.is_contiguous()
+            or tuple(snap.shape) != (kk.shape[0], _snapshots(nSteps, every),
+                                     NV)):
+        raise ValueError("snapshot buffer: want (nk, nSnap, NV) float64 on "
+                         "the wavenumbers' device, every >= 1")
+    lib = lib or load_kernel()
     c = _constants(bg)
     params = np.array([c[k] for k in _PARAM_KEYS], dtype=np.float64)
     T = torch.empty_like(kk)
@@ -550,14 +631,32 @@ def _transfer_cuda(kk, bg):
     with torch.cuda.device(kk.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.nemo_boltzmann_rk4(
-            kk.data_ptr(), tabs.data_ptr(), int(tabs.shape[1]),
+            kk.data_ptr(), tab.data_ptr(), int(nSteps), STEP_REC,
             params.ctypes.data, T.data_ptr(), R0.data_ptr(),
-            int(kk.shape[0]), stream)
+            int(kk.shape[0]), None if snap is None else snap.data_ptr(),
+            int(every) if snap is not None else 0, stream)
     if err != 0:
         raise RuntimeError("boltzmann_rk4 kernel launch failed: CUDA error "
                            "%d" % err)
     transfer_function.launches += 1
     return T, R0
+
+
+def _transfer_cuda(kk, bg):
+    """The kernel: (T, R0) tensors on ``kk``'s card, one warp a k.  The
+    per-step table is built on the host and uploaded here, so its time is
+    part of the call."""
+    if not kk.is_cuda:
+        raise ValueError("the CUDA Boltzmann kernel needs CUDA tensors")
+    kk = kk.to(torch.float64).contiguous()
+    return _launch(kk, _device_step_tables(bg, kk.device), bg)
+
+
+def _device_step_tables(bg, device):
+    """The per-step table on ``device``, step-major: uploaded as the
+    host's column-major buffer and transposed there."""
+    cols = torch.as_tensor(_step_tables(bg).T, device=device)
+    return cols.T.contiguous()
 
 
 def transfer_function(kMpc, H0=70.0, Om0=0.3, Ob0=0.05, nGrid=24576,
@@ -593,22 +692,34 @@ transfer_function.launches = 0
 
 
 def debug_trajectory(kk, H0=70.0, Om0=0.3, Ob0=0.05, nGrid=8192,
-                     dtype=np.float64, every=8, device="cpu"):
-    """Per-step state snapshots for one k (diagnostics / tests), by the
-    plain version.
+                     dtype=np.float64, every=8, device="cuda"):
+    """Per-step state snapshots for one k (diagnostics / tests): the
+    kernel's for ``device="cuda"`` (its snapshot buffer), the plain
+    version's for ``device="cpu"``.
 
     Returns (lna_snap, ys (nSnap, NV), R (nSnap,)) with R the comoving
     curvature at each snapshot - superhorizon R must stay constant.
     """
     if np.dtype(dtype) != np.float64:
         raise ValueError("the Boltzmann solve runs in float64 only")
+    dev = torch.device(device)
     bg = _solver_tables(float(H0), float(Om0), float(Ob0), int(nGrid))
-    k = torch.tensor([float(kk)], dtype=torch.float64,
-                     device=torch.device(device))
-    sysd = _System(bg, k)
-    _, snaps = sysd.steps(sysd.initial_state(), every=every)
+    k = torch.tensor([float(kk)], dtype=torch.float64, device=dev)
+    if dev.type == "cpu":
+        sysd = _System(bg, k)
+        _, snaps = sysd.steps(sysd.initial_state(), _step_tables(bg),
+                              every=every)
+        ys = torch.cat([s for _, s in snaps]).numpy()
+    elif dev.type == "cuda":
+        snap = torch.empty((1, _snapshots(bg.lna.size - 1, every), NV),
+                           dtype=torch.float64, device=dev)
+        _launch(k, _device_step_tables(bg, dev), bg, snap, every)
+        ys = snap[0].cpu().numpy()
+    else:
+        raise ValueError("device must be 'cpu' or 'cuda', got %r" % device)
     lnas = bg.lna[1:][::every]
-    ys = torch.cat([s for _, s in snaps]).cpu().numpy()
-    R = np.array([float(sysd.comoving_curvature(s, math.exp(x))[0])
-                  for (_, s), x in zip(snaps, lnas)])
+    sysd = _System(bg, k.cpu())
+    R = np.array([float(sysd.comoving_curvature(
+        torch.as_tensor(y)[None], math.exp(x))[0])
+        for y, x in zip(ys, lnas)])
     return lnas, ys, R

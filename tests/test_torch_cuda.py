@@ -293,9 +293,9 @@ def test_batched_step_on_card_matches_cpu(cuda_card):
 @pytest.mark.cuda
 def test_boltzmann_kernel_matches_plain(cuda_card):
     """csrc/boltzmann_rk4.cu against its plain version on the card, 24 k
-    across the splice grid at nGrid 2,048: the same float64 arithmetic,
-    its exp and interpolation rounding apart (~1e-11 relative after 2,047
-    steps), held at 1e-9."""
+    across the splice grid at nGrid 2,048: the same float64 arithmetic on
+    the same per-step table, the batch's operations grouped otherwise
+    than the lanes' (~1e-11 relative after 2,047 steps), held at 1e-9."""
     from nemo_tpu_torch.models import boltzmann as tb
     bg = tb._solver_tables(70.0, 0.3, 0.05, 2048)
     k = torch.as_tensor(np.logspace(np.log10(5e-3), np.log10(30.0), 24),
@@ -323,3 +323,67 @@ def test_boltzmann_transfer_function_on_card(cuda_card):
     assert tb._transfer_plain.calls == plain
     assert T.dtype == np.float64 and np.all(np.isfinite(T))
     assert d["R0"].shape == (3,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1e-3, 0.2, 5.0])
+def test_boltzmann_trajectory_kernel_matches_plain(cuda_card, k):
+    """All 36 components of the kernel's state, every 8th step at nGrid
+    2,048 (its snapshot buffer), against the plain version's trajectory
+    at 1e-9 of each component's scale: T(k) reads only dc and db, so a
+    wrong rate on one lane's multipole could hide there.  k = 1e-3 stays
+    superhorizon, 0.2 crosses tight coupling into the full hierarchies,
+    5 streams.  One counted launch, no plain call."""
+    from nemo_tpu_torch.models import boltzmann as tb
+    launches = tb.transfer_function.launches
+    plain = tb._transfer_plain.calls
+    lk, yk, Rk = tb.debug_trajectory(k, nGrid=2048, every=8)
+    torch.cuda.synchronize()
+    assert tb.transfer_function.launches == launches + 1
+    assert tb._transfer_plain.calls == plain
+    lp, yp, Rp = tb.debug_trajectory(k, nGrid=2048, every=8, device="cpu")
+    np.testing.assert_array_equal(lk, lp)
+    assert yk.shape == yp.shape == (256, tb.NV) and np.all(np.isfinite(yk))
+    scale = np.max(np.abs(yp), axis=0)
+    scale = np.where(scale > 0, scale, 1.0)
+    np.testing.assert_allclose(yk / scale, yp / scale, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(Rk, Rp, rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+def test_boltzmann_division_is_ieee(cuda_card):
+    """The Boltzmann kernel's branch-free division (FastDiv, and `/` where
+    it declines) gives the correctly rounded quotient, bitwise torch's
+    `a / b` on the card: 2^22 pairs over the whole float64 range plus
+    zeros of both signs, subnormals, the range's ends, inf and nan; and
+    every pair whose operands lie within 2^+-400 takes the fast path."""
+    from nemo_tpu_torch.models import boltzmann as tb
+    rng = np.random.default_rng(7)
+    n = 1 << 22
+
+    def draw(lo, hi, size):
+        return rng.standard_normal(size) * np.exp2(rng.integers(lo, hi,
+                                                                size))
+
+    special = np.array([0.0, -0.0, 5e-324, -5e-324, 2.2250738585072014e-308,
+                        1.7976931348623157e308, np.inf, -np.inf, np.nan,
+                        1.0, -3.0, 0.7])
+    sa, sb = np.meshgrid(special, special)
+    a = np.concatenate([draw(-1074, 1023, n // 2), draw(-400, 400, n // 2),
+                        sa.ravel()])
+    b = np.concatenate([draw(-1074, 1023, n // 2), draw(-400, 400, n // 2),
+                        sb.ravel()])
+    A = torch.as_tensor(a, device=cuda_card)
+    Bt = torch.as_tensor(b, device=cuda_card)
+    q = torch.empty_like(A)
+    fast = torch.empty(A.shape, dtype=torch.int32, device=cuda_card)
+    err = tb.load_kernel().nemo_boltzmann_divide(
+        A.data_ptr(), Bt.data_ptr(), q.data_ptr(), fast.data_ptr(),
+        int(A.numel()), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    ref = A / Bt
+    torch.cuda.synchronize()
+    same = (q.view(torch.int64) == ref.view(torch.int64)) \
+        | (torch.isnan(q) & torch.isnan(ref))
+    assert bool(same.all()), int((~same).sum())
+    assert bool(fast[n // 2:n].bool().all())
