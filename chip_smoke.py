@@ -11,7 +11,8 @@ two-band 896 x 1536 tile on the card in float32, and again on the CPU in
 float64, and checks that both recover the injected clusters alike; then a
 16-tile survey chunk through the batched engine, and the same survey
 through the ``nemo`` CLI with the DR5 selection-function epilogue (Q fit,
-RMS tables, completeness, mass-limit maps) and through ``nemoMass``.
+RMS tables, completeness, mass-limit maps), through ``nemoMass``, and
+through ``nemo -I`` (the source-injection test).
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
@@ -60,13 +61,28 @@ non-zero and prints no result):
  12 masses: the nemoMass CLI on the card against a seeded redshift
     catalog at the truth positions, its mass columns against the same CLI
     on the CPU in float64 (rtol 2e-3), and calcMassBatch on 10,000 seeded
-    rows, card against CPU float64, rows per second.
+    rows, card against CPU float64, rows per second;
+ 13 source injection: paint_objects (torch ops) at the injection shape (50
+    clusters on one tile) and at 10,000 point sources on the survey map,
+    card float32 and float64 against CPU float64 and bitwise repeatable;
+    then ``nemo -I --device cuda`` on the survey with DR5's 16-scale bank,
+    fitQ, 9 iterations of 50 clusters a tile of the photometry filter's
+    model, the reruns on the batched engine's given-filter step: seconds
+    by stage and per iteration (staging, step, download, catalog), the
+    given step once a chunk and iteration, no filter built, both kernels
+    launched (rms_cells in every rerun) with no plain call, the
+    injection-test checks of tests/test_injection_and_spec.py; then the
+    first 2 iterations again on the per-tile engine, same seed: every
+    injected object recovered at S/N >= 5 by either run found by both,
+    within 0.1', y_c within rtol 5e-3.  The last iteration's rerun runs
+    under torch.profiler (card activity only) for its device-busy share.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 
 Needs a CUDA device and nvcc; imports no JAX.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -74,6 +90,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -590,7 +607,7 @@ def check_boltzmann(boltzmann, cosmology, card):
 def cmb_field(rng, pixRad, fwhmArcmin, shape=SHAPE):
     """Gaussian CMB-like field (uK) from the lensed D_l table, synthesised
     with numpy FFTs and beam-smoothed."""
-    tab = np.loadtxt(os.path.join(ROOT, "nemo_tpu", "data",
+    tab = np.loadtxt(os.path.join(ROOT, "nemo_tpu_torch", "data",
                                   "lensed_cl_tt.txt"))
     lTab, logDl = tab[:, 0], np.log(tab[:, 1])
     ny, nx = shape
@@ -916,7 +933,6 @@ def profile_warm_run(configDict):
     overlap); the CPU ops that launched them carry the same time and are
     left out."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -924,6 +940,15 @@ def profile_warm_run(configDict):
         run_search(configDict, "cuda", "run_profile")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    busy, top, ours = device_busy(prof)
+    return wall, busy, top, ours
+
+
+def device_busy(prof):
+    """(device busy s, top device operations, the port's own kernels) of a
+    finished torch.profiler run: the sum of the device-side events' own
+    times."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -938,7 +963,7 @@ def profile_warm_run(configDict):
 
     def row(e):
         return (e.key[:70], round(dev_us(e) / 1e3, 3), e.count)
-    return wall, busy, [row(e) for e in top], [row(e) for e in ours]
+    return busy, [row(e) for e in top], [row(e) for e in ours]
 
 
 def batched_phases(noise, detect, card, device="cuda"):
@@ -1334,6 +1359,390 @@ def masses_phase(card, cfgPath, d, outDir, truth, device="cuda"):
     return MASS_ROWS / secs[device]
 
 
+# -- phase 13 ------------------------------------------------------------------
+
+# examples/dr5-cluster-search.yml's injection settings; the model is the
+# photometry filter's own (the DR5 example sets none, and a cluster run
+# without models recovers nothing)
+INJ_MODELS = [{"redshift": 0.4, "M500": 2.0e14}]
+INJ_ITERATIONS = 9
+INJ_PER_TILE = 50
+INJ_SEED = SEED + 13
+INJ_COMPARED = 2            # iterations rerun on the per-tile engine
+PAINT_SOURCES = 10000
+# operations per window pixel of paint_objects: the distance (6), the
+# interpolation (a ~12-step binary search and 6), the amplitude and the add
+PAINT_OPS_PER_WINDOW_PIXEL = 6 + 12 + 6 + 2
+
+
+@contextlib.contextmanager
+def patched(*targets):
+    """Wrap module or class attributes for the length of a ``with``; each
+    wrapper gets the original and returns the replacement."""
+    with contextlib.ExitStack() as stack:
+        for owner, name, wrap in targets:
+            stack.enter_context(mock.patch.object(owner, name,
+                                                  wrap(getattr(owner, name))))
+        yield
+
+
+def injection_recorder(log, profiled=None):
+    """Wrappers that record each injection iteration: the mock catalog and
+    its seconds, each rerun's catalog, seconds and chunk records.  The
+    rerun of iteration ``profiled`` (1-based) runs under torch.profiler,
+    tracing the card only, and records its device-busy seconds and top
+    device operations (``device_busy``)."""
+    from nemo_tpu_torch import catalogs, pipelines
+
+    def mock(orig):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            cat = orig(*a, **kw)
+            log.append({"mock": cat, "mock_s": time.perf_counter() - t0})
+            return cat
+        return run
+
+    def rerun(orig):
+        def run(config, *a, **kw):
+            if not kw.get("useCachedFilters"):
+                return orig(config, *a, **kw)       # not an injection rerun
+            budgets = os.path.join(config.diagnosticsDir,
+                                   "chunk_budgets.jsonl")
+            n0 = 0
+            if os.path.exists(budgets):
+                with open(budgets) as f:
+                    n0 = len(f.readlines())
+            prof = None
+            if len(log) == profiled:
+                import torch
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CUDA])
+            with prof or contextlib.nullcontext():
+                t0 = time.perf_counter()
+                cat = orig(config, *a, **kw)
+                if prof is not None:
+                    torch.cuda.synchronize()
+                log[-1]["rerun_s"] = time.perf_counter() - t0
+            if prof is not None:
+                (log[-1]["device_busy_s"], log[-1]["device_top"],
+                 _) = device_busy(prof)
+            log[-1]["catalog"] = cat
+            with open(budgets) as f:
+                log[-1]["chunks"] = [json.loads(x)
+                                     for x in f.readlines()[n0:]]
+            return cat
+        return run
+    return ((catalogs, "generateTestCatalog", mock),
+            (pipelines, "filterMapsAndMakeCatalogs", rerun))
+
+
+def counting(counts):
+    """Wrappers that count the per-tile engine's filter builds and read the
+    kernel counters and step calls at the start and end of the injection
+    test (the reruns)."""
+    from nemo_tpu_torch import filters, maps
+    from nemo_tpu_torch.ops import detect, noise
+    from nemo_tpu_torch.parallel import distribute
+
+    def snapshot():
+        c = read_counts(noise, detect)
+        c.update({"step_" + k: v for k, v in
+                  distribute.make_matched_filter_step.calls.items()},
+                 host_builds=counts["host_builds"])
+        return c
+
+    def build(orig):
+        def run(*a, **kw):
+            counts["host_builds"] += 1
+            return orig(*a, **kw)
+        return run
+
+    def injection(orig):
+        def run(config, *a, **kw):
+            before = snapshot()
+            out = orig(config, *a, **kw)
+            after = snapshot()
+            counts["reruns"] = {k: after[k] - before[k] for k in after
+                                if k != "largest_nT"}
+            return out
+        return run
+    counts["host_builds"] = 0
+    return ((filters.MatchedFilter, "_buildFilter", build),
+            (maps, "sourceInjectionTest", injection))
+
+
+def injection_config(surveyDict, outName, **over):
+    """The survey's DR5 config with fitQ and the injection settings,
+    written as JSON; returns (path, dict)."""
+    work = os.path.join(WORK, "inj")
+    os.makedirs(work, exist_ok=True)
+    d = dict(copy.deepcopy(surveyDict), fitQ=True,
+             outputDir=os.path.join(work, outName),
+             sourceInjectionModels=copy.deepcopy(INJ_MODELS),
+             sourceInjectionIterations=INJ_ITERATIONS,
+             sourcesPerTile=INJ_PER_TILE, seed=INJ_SEED, **over)
+    path = os.path.join(work, outName + ".yml")
+    with open(path, "w") as f:
+        json.dump(d, f, indent=1)
+    return path, d
+
+
+def compare_injection(mocksB, recsB, mocksH, recsH):
+    """Per iteration: the same mock catalog; every injected object that
+    either run recovers at S/N >= 5 (nearest detection within 1') is
+    recovered by both, within 0.1', y_c within rtol 5e-3.  Returns
+    (objects compared, max offset ', max |y_c ratio - 1|)."""
+    from nemo_tpu_torch.utils.wcs import calcAngSepDeg
+    n, maxSep, maxDy = 0, 0.0, 0.0
+    for it, (mb, mh, b, h) in enumerate(zip(mocksB, mocksH, recsB, recsH)):
+        if not (np.array_equal(np.asarray(mb["RADeg"]), np.asarray(mh["RADeg"]))
+                and np.array_equal(np.asarray(mb["y_c"]),
+                                   np.asarray(mh["y_c"]))):
+            raise RuntimeError("iteration %d drew other mock catalogs" % it)
+        truth = {"RADeg": np.asarray(mb["RADeg"], dtype=float),
+                 "decDeg": np.asarray(mb["decDeg"], dtype=float)}
+        ib, ih = match(truth, b, 1.0), match(truth, h, 1.0)
+        snrB = np.where(ib >= 0, np.asarray(b["SNR"])[ib], 0)
+        snrH = np.where(ih >= 0, np.asarray(h["SNR"])[ih], 0)
+        sel = (snrB >= 5) | (snrH >= 5)
+        missing = np.nonzero(sel & ((ib < 0) | (ih < 0)))[0]
+        if len(missing):
+            raise RuntimeError("iteration %d: injected objects %s recovered "
+                               "by one engine only" % (it, missing.tolist()))
+        gb, gh = ib[sel], ih[sel]
+        sep = 60 * calcAngSepDeg(
+            np.asarray(b["RADeg"], dtype=float)[gb],
+            np.asarray(b["decDeg"], dtype=float)[gb],
+            np.asarray(h["RADeg"], dtype=float)[gh],
+            np.asarray(h["decDeg"], dtype=float)[gh])
+        if np.any(sep > 0.1):
+            raise RuntimeError("iteration %d: batched/per-tile offsets up "
+                               "to %.3f'" % (it, sep.max()))
+        yB = np.asarray(b["y_c"], dtype=float)[gb]
+        yH = np.asarray(h["y_c"], dtype=float)[gh]
+        np.testing.assert_allclose(yB, yH, rtol=5e-3)
+        n += int(sel.sum())
+        maxSep = max(maxSep, float(sep.max(initial=0.0)))
+        maxDy = max(maxDy, float(np.max(np.abs(yB / yH - 1), initial=0.0)))
+    return n, maxSep, maxDy
+
+
+def paint_timings(card, surveyDict, device="cuda"):
+    """paint_objects at the injection shape (the model's 50 clusters on one
+    tile) and at 10,000 point sources on the whole survey map: card float32
+    and float64 (CUDA events) and CPU float64 times, each against the CPU
+    float64 canvas, two float32 calls bitwise equal; the bound from the
+    bytes (inputs read once, the canvas written once) and the operations
+    of the windows."""
+    import torch
+    from nemo_tpu_torch import maps
+    from nemo_tpu_torch.models import cosmology, profiles
+    from nemo_tpu_torch.models.beams import BeamProfile
+    from nemo_tpu_torch.ops import paint
+    from nemo_tpu_torch.utils import wcs as nwcs
+
+    onCard = device == "cuda"
+    rng = np.random.default_rng(SEED + 14)
+    beamFile = surveyDict["unfilteredMaps"][0]["beamFileName"]
+    out = {}
+    m = INJ_MODELS[0]
+    theta = cosmology.calcTheta500Arcmin(m["redshift"], m["M500"],
+                                         cosmology.fiducialCosmoModel())
+    prof = profiles.makeArnaudModelProfile(m["redshift"], m["M500"])
+    grid = SURVEY_GRID
+    cases = {
+        "injection": (SHAPE, INJ_PER_TILE, profiles.signalTemplateTable(
+            prof["rDeg"], prof["prof"], beam=beamFile,
+            amplitude=rng.uniform(1e-4, 1e-3, INJ_PER_TILE)),
+            maps._quantizeSizeDeg(5 * theta / 60)),
+        "sources": ((grid[0] * SHAPE[0], grid[1] * SHAPE[1]), PAINT_SOURCES,
+                    profiles.beamTemplateTable(
+                        beamFile, 10 ** rng.uniform(1, 3, PAINT_SOURCES)),
+                    maps._quantizeSizeDeg(
+                        5 * BeamProfile(beamFileName=beamFile).FWHMArcmin
+                        / 60))}
+    for tag, (shape, n, (r, v, amps), rmaxDeg) in cases.items():
+        w = nwcs.makeWCS(shape, PIX_ARCMIN / 60.0, centreRADeg=60.0,
+                         centreDecDeg=-30.0)
+        dxr = maps.pixScaleXRadPerRow(w, shape)
+        pix = maps.pixScalesRad(w, shape)
+        ys = rng.uniform(0, shape[0], n)
+        xs = rng.uniform(0, shape[1], n)
+        rmax = np.radians(rmaxDeg)
+
+        def run(dev, dt, ys=ys, xs=xs, amps=amps, r=r, v=v, rmax=rmax,
+                dxr=dxr, pix=pix, shape=shape):
+            return paint.paint_objects(shape, pix, ys, xs, amps, r, v, rmax,
+                                       dx_rows=dxr, device=dev, dtype=dt)
+        t0 = time.perf_counter()
+        ref = run("cpu", torch.float64).numpy()
+        cpuMs = 1e3 * (time.perf_counter() - t0)
+        peak = float(np.abs(ref).max())
+        res = {"objects": n, "shape": list(shape), "cpu_f64_ms": cpuMs}
+        wy = min(int(np.ceil(rmax / pix[0])), shape[0])
+        wx = min(int(np.ceil(rmax / float(dxr.min()))), shape[1])
+        winPix = n * (2 * wy + 1) * (2 * wx + 1)
+        res["window"] = [2 * wy + 1, 2 * wx + 1]
+        for dt, name, size, tol in ((torch.float32, "float32", 4, 1e-5),
+                                    (torch.float64, "float64", 8, 1e-12)):
+            if not onCard:
+                continue
+            a = run(device, dt)
+            b = run(device, dt)
+            if not torch.equal(a, b):
+                raise RuntimeError("paint_objects %s %s: two calls differ"
+                                   % (tag, name))
+            err = float(np.max(np.abs(a.cpu().numpy().astype(np.float64)
+                                      - ref)))
+            if err > tol * peak:
+                raise RuntimeError("paint_objects %s %s: max abs err %.3e "
+                                   "of peak %.3e" % (tag, name, err, peak))
+            nbytes = size * (3 * n + 2 * len(r) + shape[0]
+                             + shape[0] * shape[1])
+            bms, by = bound(nbytes, PAINT_OPS_PER_WINDOW_PIXEL * winPix,
+                            name)
+            res[name] = {"ms": time_ms(lambda: run(device, dt), 5),
+                         "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+                         "bitwise_repeat": True}
+            del a, b
+        out[tag] = res
+    phase(13, "paint_objects (torch ops, no kernel): %s (%s)"
+          % (json.dumps(out), card))
+    return out
+
+
+def injection_phase(noise, detect, card, surveyDict, device="cuda"):
+    """Phase 13: ``nemo -I`` on the survey through the batched engine, then
+    its first INJ_COMPARED iterations again on the per-tile engine."""
+    import torch
+    from nemo_tpu_torch import maps, startup
+    from nemo_tpu_torch.cli import nemo_main
+    from nemo_tpu_torch.utils.tables import Table
+    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    paint_timings(card, surveyDict, device)
+    cfgPath, d = injection_config(surveyDict, "batched")
+    nTiles = len(d["tileDefinitions"])
+    logB, counts = [], {}
+    GLOBAL_TIMER.__init__()
+    reset_counts(noise, detect)
+    t0 = time.perf_counter()
+    onCard = device == "cuda"
+    with patched(*injection_recorder(logB, INJ_ITERATIONS if onCard
+                                     else None), *counting(counts)):
+        nemo_main.main([cfgPath, "-I", "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    whole = read_counts(noise, detect)
+    reruns = counts["reruns"]
+    stages = dict(GLOBAL_TIMER.stages)
+    if len(logB) != INJ_ITERATIONS or any(
+            len(it["chunks"]) != 1 or it["chunks"][0]["givenLabels"] != 1
+            for it in logB):
+        raise RuntimeError("injection reruns: %d iterations, chunks %s"
+                           % (len(logB), [[c.get("givenLabels") for c in
+                                           it.get("chunks", [])]
+                                          for it in logB]))
+    kernelsOk = (whole["rms_cells"] > 0 and whole["labels"] > 0
+                 and whole["rms_plain"] == 0 and whole["labels_plain"] == 0
+                 and reruns["rms_cells"] == INJ_ITERATIONS
+                 and reruns["rms_plain"] == 0) if onCard else \
+        (whole["rms_cells"] == 0 and whole["labels"] == 0)
+    if reruns["step_given"] != INJ_ITERATIONS or reruns["step_build"] != 0 \
+            or reruns["host_builds"] != 0 or not kernelsOk:
+        raise RuntimeError("nemo -I: counts %s, reruns %s" % (whole, reruns))
+
+    selFn = os.path.join(d["outputDir"], "selFn")
+    tab = Table.read(os.path.join(selFn, "sourceInjectionData.fits"))
+    inF = np.asarray(tab["inFlux"], dtype=float)
+    outF = np.asarray(tab["outFlux"], dtype=float)
+    snr = np.asarray(tab["SNR"], dtype=float)
+    rArc = np.asarray(tab["rArcmin"], dtype=float)
+    corr = float(np.corrcoef(inF, outF)[0, 1])
+    bright = snr > 8
+    ratio = float(np.median(outF[bright] / inF[bright]))
+    offset = float(np.median(rArc[bright]) * 60)
+    if len(tab) < 0.3 * nTiles * INJ_PER_TILE * INJ_ITERATIONS \
+            or corr <= 0.7 or bright.sum() < 20 \
+            or not 0.95 < ratio < 1.08 or offset >= 12.0 \
+            or not np.all(np.isfinite(outF)):
+        raise RuntimeError("injection results: %d rows, corr %.3f, %d "
+                           "bright, median ratio %.4f, median offset "
+                           "%.2f\"" % (len(tab), corr, int(bright.sum()),
+                                        ratio, offset))
+    phase(13, "nemo -I on %s, %d tiles: first pass (%d scales) and "
+          "epilogue, then %d iterations x %d sources a tile of M500 %.1e "
+          "z %.1f on the batched engine: %.2f s; stages (s) %s; %d rows, "
+          "corr(inFlux, outFlux) %.3f, bright (S/N > 8: %d) median "
+          "outFlux/inFlux %.4f, median offset %.2f\" (%s)"
+          % (device, nTiles, len(d["mapFilters"]), INJ_ITERATIONS,
+             INJ_PER_TILE, INJ_MODELS[0]["M500"], INJ_MODELS[0]["redshift"],
+             secs, json.dumps({k: round(v, 3) for k, v in
+                               sorted(stages.items())}), len(tab), corr,
+             int(bright.sum()), ratio, offset, card))
+    rows = []
+    for it in logB:
+        c = it["chunks"][0]
+        rows.append({"wall": round(it["mock_s"] + it["rerun_s"], 3),
+                     "mock": round(it["mock_s"], 3),
+                     "rerun": round(it["rerun_s"], 3),
+                     "staging": round(c["stageWait"] + c["upload"], 3),
+                     "step": round(c["step"], 3),
+                     "download": round(c["download"], 3),
+                     "catalog": round(c["consume"], 3),
+                     "other": round(it["rerun_s"] - c["stageWait"]
+                                    - c["upload"] - c["step"]
+                                    - c["download"] - c["consume"], 3)})
+    phase(13, "per iteration (s; staging = staging-worker wait + upload, "
+          "catalog = host detection and photometry, other = the rest of "
+          "the rerun: optimal catalog, emission): %s (%s)"
+          % (json.dumps(rows), card))
+    if onCard:
+        last = logB[-1]
+        phase(13, "iteration %d's rerun under torch.profiler (card only): "
+              "%.3f s wall, device busy %.3f s (%.1f%%); top device ops "
+              "(name, ms, calls): %s (%s)"
+              % (INJ_ITERATIONS, last["rerun_s"], last["device_busy_s"],
+                 100 * last["device_busy_s"] / last["rerun_s"],
+                 json.dumps(last["device_top"]), card))
+    phase(13, "launches and plain calls: the whole run %s; the reruns %s "
+          "(given steps %d, build steps %d, per-tile filter builds %d; the "
+          "reruns detect on the host against the cached RMS maps, as "
+          "nemo_tpu does, so the labelling kernel runs in the first pass)"
+          % (json.dumps(whole), json.dumps(reruns), reruns["step_given"],
+             reruns["step_build"], reruns["host_builds"]))
+
+    # the first iterations again on the per-tile engine, same seed
+    logH, countsH = [], {}
+    parDict = startup.parseConfigDict(copy.deepcopy(d))
+    parDict.update(useDeviceBatching=False,
+                   sourceInjectionIterations=INJ_COMPARED)
+    config = startup.NemoConfig(parDict, device=device)
+    t0 = time.perf_counter()
+    with patched(*injection_recorder(logH), *counting(countsH)):
+        maps.sourceInjectionTest(config)
+    hostSecs = time.perf_counter() - t0
+    if countsH["reruns"]["host_builds"] != 0 \
+            or countsH["reruns"]["step_build"] != 0:
+        raise RuntimeError("per-tile reruns built filters: %s"
+                           % countsH["reruns"])
+    n, maxSep, maxDy = compare_injection(
+        [it["mock"] for it in logB[:INJ_COMPARED]],
+        [it["catalog"] for it in logB[:INJ_COMPARED]],
+        [it["mock"] for it in logH], [it["catalog"] for it in logH])
+    if n < 0.2 * nTiles * INJ_PER_TILE * INJ_COMPARED:
+        raise RuntimeError("only %d injected objects compared" % n)
+    phase(13, "iterations 1-%d again on the per-tile engine on %s: %.2f s "
+          "(%s s an iteration), no filter built; %d injected objects at "
+          "S/N >= 5 in either run, found by both, max offset %.4f', max "
+          "|y_c ratio - 1| %.2e (%s)"
+          % (INJ_COMPARED, device, hostSecs,
+             [round(it["mock_s"] + it["rerun_s"], 2) for it in logH], n,
+             maxSep, maxDy, card))
+    return whole, reruns
+
+
 def main():
     try:
         import torch
@@ -1414,6 +1823,7 @@ def main():
         noise, detect, card, surveyDict, surveyTruth)
     qfit_routes_phase(card, dr5Dict, dr5Out)
     masses_phase(card, cfgPath, dr5Dict, dr5Out, surveyTruth)
+    injCounts = injection_phase(noise, detect, card, surveyDict)
 
     errs, flips, ms, bms, by = rms[("step", "float32")]
     ms1 = rms[("nT1", "float32")][2]
@@ -1431,7 +1841,10 @@ def main():
         "ms_streaming": ms["streaming"],
         "max_abs_err_streaming": errs["streaming"],
         "borderline_clip_cells": flips,
-        "launches_one_tile": launches, "ms_nT1": ms1["staged"],
+        "launches_one_tile": launches,
+        "launches_nemo_I": injCounts[0]["rms_cells"],
+        "launches_injection_reruns": injCounts[1]["rms_cells"],
+        "ms_nT1": ms1["staged"],
         "ms_nT1_streaming": ms1["streaming"], "plain_ms_nT1": ms1["plain"],
     }, {
         "name": "label_components", "route": "cuda",
@@ -1441,6 +1854,7 @@ def main():
         "ms": labelMs["kernel"], "plain_ms": labelMs["plain"],
         "bound_ms": labelBound, "bound_by": labelBy, "library_ms": None,
         "share_of_bound": labelBound / labelMs["kernel"],
+        "launches_nemo_I": injCounts[0]["labels"],
         "shape": "16 x 900 x 1536 S/N mask, 128 passes"}, {
         "name": "boltzmann_rk4", "route": "cuda",
         "source": "nemo_tpu_torch/csrc/boltzmann_rk4.cu",

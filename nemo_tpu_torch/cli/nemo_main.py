@@ -5,9 +5,10 @@ Same flags and output layout as ``nemo_tpu.cli.nemo_main``, plus
 ``--device``.  Runs the filter and catalog stage (per tile, or batched over
 tiles with ``useDeviceBatching: true``), then the epilogue as the JAX CLI
 does: the Q fit (``fitQ``), the RMS tables, the fRel weights and the fused
-selection-function products, the stitched and quick-look maps, and with
-``-S`` (or ``calcSelFn``) the completeness and mass-limit maps.  Source
-injection (``-I``) is not ported yet and fails before any work.
+selection-function products, the stitched and quick-look maps, with ``-I``
+(or ``sourceInjectionTest``) the source-injection test and its position
+recovery analysis, and with ``-S`` (or ``calcSelFn``) the completeness and
+mass-limit maps.
 
     python -m nemo_tpu_torch.cli.nemo_main config.yml --device cuda
 """
@@ -32,7 +33,8 @@ def makeParser():
     parser.add_argument("-I", "--run-source-injection-test",
                         dest="sourceInjectionTest", action="store_true",
                         default=False,
-                        help="Run a source injection test (not ported yet).")
+                        help="Run a source injection test, using the "
+                             "settings given in the config file.")
     parser.add_argument("-f", "--forced-photometry-catalog",
                         dest="forcedCatalogFileName", default=None,
                         help="Perform forced photometry at positions in "
@@ -61,14 +63,6 @@ def makeParser():
     return parser
 
 
-def _notPortedConfig(config, args):
-    """Names of requested stages that the port does not run yet."""
-    todo = []
-    if args.sourceInjectionTest or config.parDict.get("sourceInjectionTest"):
-        todo.append("source injection / -I (ROADMAP.md queue 1, item 10)")
-    return todo
-
-
 def main(argv=None):
     args = makeParser().parse_args(argv)
     config = startup.NemoConfig(args.configFileName,
@@ -81,10 +75,6 @@ def main(argv=None):
         print(">>> Tiling check: this config has %d tiles."
               % len(config.allTileNames))
         sys.exit()
-    todo = _notPortedConfig(config, args)
-    if todo:
-        raise SystemExit("nemo (PyTorch port): not ported yet: %s"
-                         % "; ".join(todo))
     print("... device: %s (%s)" % (config.policy.device,
                                    str(config.policy.dtype).split(".")[-1]))
 
@@ -115,6 +105,32 @@ def main(argv=None):
 
     with GLOBAL_TIMER.stage("makeRMSTables"):
         pipelines.makeRMSTables(config)
+
+    sourceInjTable = None
+    sourceInjPath = os.path.join(config.selFnDir,
+                                 "sourceInjectionData.fits")
+    if not os.path.exists(sourceInjPath):
+        if config.parDict.get("sourceInjectionTest"):
+            with GLOBAL_TIMER.stage("sourceInjectionTest"):
+                sourceInjTable = maps.sourceInjectionTest(config)
+    else:
+        print("... already made source injection data %s" % sourceInjPath)
+    if sourceInjTable is not None:
+        sourceInjTable.write(sourceInjPath)
+    if sourceInjTable is not None and len(sourceInjTable) == 0:
+        # e.g. a cluster config run with -I but without
+        # sourceInjectionModels: nothing recovered
+        print("... WARNING: source injection test recovered no objects "
+              "(cluster configs need sourceInjectionModels) - skipping "
+              "position recovery analysis")
+    elif sourceInjTable is not None:
+        maps.positionRecoveryAnalysis(
+            sourceInjTable,
+            os.path.join(config.diagnosticsDir, "positionRecovery.pdf"),
+            percentiles=[50, 95, 99.7], plotRawData=True,
+            pickleFileName=os.path.join(config.diagnosticsDir,
+                                        "positionRecovery.pkl"),
+            selFnDir=config.selFnDir)
 
     if config.parDict.get("stitchTiles") and len(config.tileNames) > 1:
         with GLOBAL_TIMER.stage("stitchTiles"):

@@ -19,8 +19,8 @@ package is applied by the other.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the real-space matched filter, the 'model' and 'max(dataMap,CMB)' noise
-methods, noise-model catalogs, and filters applied to a map of another
-shape (``reshapeFilter``).
+methods, and filters applied to a map of another shape
+(``reshapeFilter``).
 """
 
 import os
@@ -37,7 +37,7 @@ from .ops import solve as solve_ops
 from .utils import fits as nfits
 from .utils.timing import GLOBAL_TIMER
 
-_SIMS_TODO = "not ported yet (ROADMAP.md queue 1, item 10: sims and injection)"
+_SIMS_TODO = "not ported yet (ROADMAP.md queue 1, item 10c: flat-sky sims)"
 _REST_TODO = "not ported yet (ROADMAP.md queue 1, item 11: the rest)"
 
 
@@ -632,14 +632,29 @@ class MatchedFilter(MapFilter):
 
     # ------------------------------------------------------------------
     def _noiseStack(self, dataStack):
-        """Maps whose power defines the noise covariance ('dataMap')."""
+        """Maps whose power defines the noise covariance ('dataMap'): the
+        data, less the model images of any ``noiseModelCatalog``."""
         method = self.params["noiseParams"]["method"]
         if method == "dataMap":
-            if self.params.get("noiseModelCatalog"):
-                raise NotImplementedError(
-                    "noiseModelCatalog (model images subtracted from the "
-                    "noise maps) is " + _SIMS_TODO)
-            return dataStack
+            cats = self.params.get("noiseModelCatalog")
+            if not cats:
+                return dataStack
+            from . import maps as maps_mod
+            if not isinstance(cats, list):
+                cats = [cats]
+            maps_ = []
+            for i, mapDict in enumerate(self.unfilteredMapsDictList):
+                d = dataStack[i]
+                for cat in cats:
+                    model = maps_mod.makeModelImage(
+                        tuple(d.shape), self.wcs, cat,
+                        mapDict["beamFileName"],
+                        obsFreqGHz=mapDict["obsFreqGHz"], asDevice=True,
+                        policy=self.policy)
+                    if model is not None:
+                        d = d - model
+                maps_.append(d)
+            return torch.stack(maps_)
         if method in ("model", "max(dataMap,CMB)"):
             raise NotImplementedError(
                 "noiseParams method '%s' needs the CMB sims, %s"

@@ -1,32 +1,39 @@
-"""Map and tile runtime: lazy tile loading and per-tile preprocessing.
+"""Map and tile runtime: tile loading, preprocessing, model images, the
+source-injection test, tiling and stitching.
 
-Port of the host side of ``nemo_tpu/maps.py`` that the cluster search
-runs: :class:`MapDict` (tile loading and the ``preprocess`` chain),
-:class:`MapDictList`, :class:`TileDict`, the tiling helpers that
-:mod:`startup` needs, and the stitched and quick-look maps of a tiled
-run.  All of it is host numpy; the preprocess steps that
-run device work in the JAX package (survey-mask apodisation, the CMB
-substitution of contamination sims, source injection, beam convolution,
-model subtraction) raise NotImplementedError naming their ROADMAP item.
+Port of ``nemo_tpu/maps.py``: :class:`MapDict` (tile loading and the
+``preprocess`` chain), :class:`MapDictList`, :class:`TileDict`, the tiling
+helpers that :mod:`startup` needs, model images (:func:`makeModelImage`),
+beam convolution, source masking, the injection test and its analyses,
+and the stitched and quick-look maps of a tiled run.  Bookkeeping is host
+numpy; painting, beam convolution, the survey-mask apodisation and the
+pixel window run as torch ops on a :class:`~nemo_tpu_torch.device.Policy`'s
+device (a MapDict's ``policy``, the CPU unless a config gives its own).
+The CMB substitution of contamination sims (``CMBSimSeed``) raises
+NotImplementedError naming its ROADMAP item.
 """
 
 import os
 import threading
 
 import numpy as np
+import torch
 
 from . import catalogs
-from .ops import imageops
+from . import device as device_mod
+from .models import cosmology as cosmo_mod
+from .models import profiles, sz
+from .models.beams import BeamProfile
+from .ops import fourier, imageops
 from .utils import fits as nfits
-from .utils.tables import Table
+from .utils.tables import Table, vstack
 from .utils.wcs import WCS, calcAngSepDeg, clipUsingRADecCoords
 
-_SIMS_TODO = "not ported yet (ROADMAP.md queue 1, item 10: sims and injection)"
+_SIMS_TODO = "not ported yet (ROADMAP.md queue 1, item 10c: flat-sky sims)"
 
-
-def _notPorted(what):
-    raise NotImplementedError("preprocess option '%s' is %s"
-                              % (what, _SIMS_TODO))
+# Reference API-parity aliases: the unit conversions live in models/sz.py
+convertToY = sz.convertToY
+convertToDeltaT = sz.convertToDeltaT
 
 
 # -----------------------------------------------------------------------------
@@ -40,6 +47,23 @@ def pixScalesRad(wcs, shape=None):
     dx = calcAngSepDeg(ra0, dec0, ra1, dec0)
     dy = calcAngSepDeg(ra0, dec0, ra0, dec1)
     return (float(np.radians(dy)), float(np.radians(dx)))
+
+
+def pixScaleXRadPerRow(wcs, shape=None):
+    """Per-row x pixel scale in radians - on a CAR grid this varies as
+    cos(dec) across the tile.  Feeds the declination-aware GRF synthesis
+    (``ops.grf.gaussian_field_decaware``), which shrinks the flat-sky
+    multipole distortion of the sims at high |dec|."""
+    if shape is None:
+        shape = (wcs.naxis2, wcs.naxis1)
+    ny = shape[0]
+    cx = float(shape[1] // 2)
+    rows = np.arange(ny, dtype=float)
+    out = wcs.pix2wcs(np.full(ny, cx), rows)
+    ra0, dec0 = np.asarray(out)[:, 0], np.asarray(out)[:, 1]
+    out1 = wcs.pix2wcs(np.full(ny, cx + 1.0), rows)
+    ra1, dec1 = np.asarray(out1)[:, 0], np.asarray(out1)[:, 1]
+    return np.radians(calcAngSepDeg(ra0, dec0, ra1, dec1))
 
 
 # Decompressed-file cache for tile clipping of maps that cannot be
@@ -75,17 +99,20 @@ def _readFullCached(path):
 # -----------------------------------------------------------------------------
 class MapDict(dict):
     """A sky-map descriptor + per-tile preprocessing, mirroring
-    ``nemo/maps.py:47-476``."""
+    ``nemo/maps.py:47-476``.  ``policy`` is the device the preprocess
+    steps' torch work runs on (default: the CPU)."""
 
-    def __init__(self, inputDict, tileCoordsDict=None):
+    def __init__(self, inputDict, tileCoordsDict=None, policy=None):
         super().__init__(inputDict)
         self.tileCoordsDict = tileCoordsDict
+        self.policy = policy or device_mod.CPU
         self._maskKeys = ["pointSourceMask", "surveyMask", "flagMask",
                           "extendedMask"]
         self.validMapKeys = ["mapFileName", "weightsFileName"] + self._maskKeys
 
     def copy(self):
-        return MapDict(self, tileCoordsDict=self.tileCoordsDict)
+        return MapDict(self, tileCoordsDict=self.tileCoordsDict,
+                       policy=self.policy)
 
     def loadTile(self, mapKey, tileName, returnWCS=False):
         """Load (and clip) one tile of the map pointed to by ``mapKey``
@@ -215,7 +242,12 @@ class MapDict(dict):
             surveyMask[weights == 0] = 0
 
         if self.get("apodizeUsingSurveyMask"):
-            _notPorted("apodizeUsingSurveyMask")
+            P = self.policy
+            apodMask = imageops.binary_dilate_cross(
+                torch.as_tensor(surveyMask > 0, device=P.device), 120)
+            apodMask = imageops.gaussian_filter(
+                apodMask.to(P.dtype), 20).cpu().numpy()
+            data = data * apodMask
 
         if self.get("pointSourceMask") is not None:
             psMask = self.loadTile("pointSourceMask", tileName)
@@ -244,14 +276,40 @@ class MapDict(dict):
             if data.size == 0:
                 raise ValueError("RADecSection clip returned empty array")
 
-        # device work in the JAX package, not ported yet
-        for key in ("CMBSimSeed", "injectSources"):
-            if key in self:
-                _notPorted(key)
+        if "CMBSimSeed" in self:
+            raise NotImplementedError(
+                "preprocess option 'CMBSimSeed' (source-free CMB "
+                "substitution for contamination sims) is " + _SIMS_TODO)
+
+        # Injection of model objects (position-recovery / completeness sims)
+        if "injectSources" in self:
+            inj = self["injectSources"]
+            GNFWParams = inj.get("GNFWParams", None)
+            validAreaSection = None
+            if self.tileCoordsDict is not None and \
+                    tileName in self.tileCoordsDict:
+                validAreaSection = \
+                    self.tileCoordsDict[tileName]["areaMaskInClipSection"]
+            modelMap = makeModelImage(
+                data.shape, wcs, inj["catalog"], self["beamFileName"],
+                obsFreqGHz=self["obsFreqGHz"],
+                GNFWParams=GNFWParams if GNFWParams else "default",
+                profile=inj.get("profile", "A10"),
+                validAreaSection=validAreaSection,
+                override=inj.get("override"), policy=self.policy)
+            if modelMap is not None:
+                modelMap[weights == 0] = 0
+                data = data + modelMap
+
         if self.get("applyBeamConvolution"):
-            _notPorted("applyBeamConvolution")
+            data = convolveMapWithBeam(data, wcs, self["beamFileName"],
+                                       policy=self.policy)
+
         if "smoothKernel" in self:
-            _notPorted("smoothKernel")
+            if "smoothAttenuationFactor" in self:
+                data = data * self["smoothAttenuationFactor"]
+            data = convolveMapWithBeam(data, wcs, self["smoothKernel"],
+                                       policy=self.policy)
 
         # Hole-filling background (maps.py:355-365)
         holeFillingKeys = ["maskPointSourcesFromCatalog",
@@ -297,7 +355,20 @@ class MapDict(dict):
                     data[holeMask] = bckData[holeMask]
 
         if self.get("subtractModelFromCatalog"):
-            _notPorted("subtractModelFromCatalog")
+            cats = self["subtractModelFromCatalog"]
+            if not isinstance(cats, list):
+                cats = [cats]
+            for tab in cats:
+                if not isinstance(tab, Table):
+                    tab = Table.read(tab)
+                tab = catalogs.getCatalogWithinImage(tab, data.shape, wcs)
+                model = makeModelImage(data.shape, wcs, tab,
+                                       self["beamFileName"],
+                                       obsFreqGHz=self["obsFreqGHz"],
+                                       policy=self.policy)
+                if model is not None:
+                    data = data - model
+                    flagMask = flagMask + (model > 1)
 
         if self.get("maskAndFillFromCatalog"):
             cats = self["maskAndFillFromCatalog"]
@@ -340,8 +411,9 @@ class MapDict(dict):
 class MapDictList:
     """List of MapDicts sharing a tileCoordsDict (``maps.py:478-499``)."""
 
-    def __init__(self, mapDictList, tileCoordsDict=None):
-        self.mapDicts = [MapDict(m, tileCoordsDict=tileCoordsDict)
+    def __init__(self, mapDictList, tileCoordsDict=None, policy=None):
+        self.mapDicts = [MapDict(m, tileCoordsDict=tileCoordsDict,
+                                 policy=policy)
                          for m in mapDictList]
 
     def __iter__(self):
@@ -559,6 +631,180 @@ def subtractBackground(data, wcs, RADeg="centre", decDeg="centre",
                             smoothScaleDeg=smoothScaleDeg, policy=policy)
 
 
+def addWhiteNoise(mapData, noisePerPix, seed=None):
+    rng = np.random.default_rng(seed)
+    return mapData + rng.normal(0, noisePerPix, mapData.shape)
+
+
+def convolveMapWithBeam(data, wcs, beam, maxDistDegrees=1.0, policy=None):
+    """Beam-convolve a map: an exact multiply by B_ell in Fourier space, on
+    ``policy``'s device (host numpy in and out)."""
+    P = policy or device_mod.CPU
+    if isinstance(beam, str):
+        beam = BeamProfile(beamFileName=beam)
+    pix = pixScalesRad(wcs, data.shape)
+    lmap = fourier.rmodlmap(data.shape, pix)
+    Bl2d = np.interp(lmap, beam.ell, beam.Bell, right=0.0)
+    fm = fourier.rfft2(P.tensor(np.asarray(data)))
+    return fourier.irfft2(fm * P.tensor(Bl2d), data.shape).cpu().numpy()
+
+
+# -----------------------------------------------------------------------------
+def makeModelImage(shape, wcs, catalog, beamFileName, obsFreqGHz=None,
+                   GNFWParams="default", profile="A10", cosmoModel=None,
+                   applyPixelWindow=True, override=None,
+                   validAreaSection=None, minSNR=-99, TCMBAlpha=0,
+                   asDevice=False, policy=None):
+    """Paint model clusters or point sources into a blank map, on
+    ``policy``'s device (default the CPU).
+
+    Three routes, as the reference: clusters with one ``override`` model
+    (z, M500) for every row, painted together with per-row amplitudes
+    ``y_c``; clusters row by row (``true_M500c`` or the ``template``
+    name); point sources (``deltaT_c``), painted together with the beam.
+    Returns None when no object lies in the map (or in
+    ``validAreaSection``), else the (float64, writable) host map, or with
+    ``asDevice`` the tensor on the policy's device."""
+    P = policy or device_mod.CPU
+    if isinstance(catalog, str):
+        catalog = Table.read(catalog)
+    catalog = catalogs.getCatalogWithinImage(catalog, shape, wcs)
+
+    SNRKey = None
+    for k in ("SNR", "fixed_SNR"):
+        if k in catalog.keys():
+            SNRKey = k
+            break
+    if SNRKey is not None:
+        catalog = catalog[np.asarray(catalog[SNRKey]) > minSNR]
+
+    if validAreaSection is not None and len(catalog) > 0:
+        x0, x1, y0, y1 = validAreaSection
+        coords = wcs.wcs2pix(np.asarray(catalog["RADeg"], dtype=float),
+                             np.asarray(catalog["decDeg"], dtype=float))
+        x = coords[:, 0]
+        y = coords[:, 1]
+        catalog = catalog[(x >= x0) & (x < x1) & (y >= y0) & (y < y1)]
+
+    if len(catalog) == 0:
+        return None
+
+    cosmoModel = cosmoModel or cosmo_mod.fiducialCosmoModel()
+    pix = pixScalesRad(wcs, shape)
+    # dec-aware per-row x scales: the true angular distances at any
+    # declination, and tiled painting agrees with full-map painting
+    dxRows = pixScaleXRadPerRow(wcs, shape)
+    onDevice = {"returnDevice": True, "dx_rows": dxRows,
+                "device": P.device, "dtype": P.dtype}
+
+    beam = BeamProfile(beamFileName=beamFileName)
+
+    isCluster = ("y_c" in catalog.keys() or "true_y_c" in catalog.keys())
+    coords = wcs.wcs2pix(np.asarray(catalog["RADeg"], dtype=float),
+                         np.asarray(catalog["decDeg"], dtype=float))
+    xs, ys = coords[:, 0], coords[:, 1]
+    if isCluster:
+        makeSignalMap = profiles.makeArnaudModelSignalMap if profile == "A10" \
+            else profiles.makeBattagliaModelSignalMap
+        if override is not None:
+            z = override["redshift"]
+            M500 = override["M500"]
+            y0s = np.asarray(catalog["y_c"], dtype=float) * 1e-4
+            theta500 = cosmo_mod.calcTheta500Arcmin(z, M500, cosmoModel)
+            maxSizeDeg = _quantizeSizeDeg(5 * theta500 / 60)
+            modelMap = makeSignalMap(
+                z, M500, shape, pix, beam=beam, ys=ys, xs=xs,
+                GNFWParams=GNFWParams, amplitude=y0s,
+                maxSizeDeg=maxSizeDeg, cosmoModel=cosmoModel, **onDevice)
+            if obsFreqGHz is not None:
+                modelMap = sz.convertToDeltaT(modelMap,
+                                              obsFrequencyGHz=obsFreqGHz,
+                                              TCMBAlpha=TCMBAlpha, z=z)
+        else:
+            modelMap = torch.zeros(shape, dtype=P.dtype, device=P.device)
+            for i, row in enumerate(catalog):
+                if "true_M500c" in catalog.keys():
+                    M500 = row["true_M500c"] * 1e14
+                    z = row["redshift"]
+                    y0 = row["true_y_c"] * 1e-4
+                else:
+                    if "template" not in catalog.keys():
+                        raise ValueError("No M500, z, or template column "
+                                         "found in catalog")
+                    bits = str(row["template"]).split("#")[0].split("_")
+                    M500 = float(bits[1][1:].replace("p", "."))
+                    z = float(bits[2][1:].replace("p", "."))
+                    y0 = row["y_c"] * 1e-4
+                theta500 = cosmo_mod.calcTheta500Arcmin(z, M500, cosmoModel)
+                maxSizeDeg = _quantizeSizeDeg(5 * theta500 / 60)
+                signalMap = makeSignalMap(
+                    z, M500, shape, pix, beam=beam, ys=[ys[i]], xs=[xs[i]],
+                    GNFWParams=GNFWParams, amplitude=y0,
+                    maxSizeDeg=maxSizeDeg, cosmoModel=cosmoModel,
+                    **onDevice)
+                if obsFreqGHz is not None:
+                    signalMap = sz.convertToDeltaT(
+                        signalMap, obsFrequencyGHz=obsFreqGHz,
+                        TCMBAlpha=TCMBAlpha, z=z)
+                modelMap = modelMap + signalMap
+    else:
+        # point sources, all sharing the beam profile: painted together
+        amps = np.asarray(catalog["deltaT_c"], dtype=float)
+        numFWHM = 5.0
+        maxSizeDeg = _quantizeSizeDeg((beam.FWHMArcmin * numFWHM) / 60)
+        modelMap = profiles.makeBeamModelSignalMap(
+            shape, pix, beam, ys=ys, xs=xs, amplitude=amps,
+            maxSizeDeg=maxSizeDeg, **onDevice)
+
+    if applyPixelWindow:
+        modelMap = fourier.apply_pixel_window(modelMap, pow=1.0)
+    if asDevice:
+        return modelMap
+    return modelMap.cpu().numpy().astype(np.float64)
+
+
+def _quantizeSizeDeg(sizeDeg, steps=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 15.0)):
+    """Painting truncation radius rounded up to one of a few steps (the
+    JAX package's rule, kept so both packages paint the same windows)."""
+    for s in steps:
+        if sizeDeg <= s:
+            return s
+    return steps[-1]
+
+
+def maskOutSources(mapData, wcs, catalog, radiusArcmin=7.0, mask=0.0,
+                   growMaskedArea=1.0):
+    """Blank circular regions at catalog positions (``maps.py:1083-1157``)."""
+    maskMap = np.zeros(mapData.shape)
+    maskedData = np.array(mapData, dtype=np.float64)
+    rng = np.random.default_rng(1234)
+    for row in catalog:
+        holeMask = _distance_mask(mapData.shape, wcs, row["RADeg"],
+                                  row["decDeg"],
+                                  (radiusArcmin * growMaskedArea) / 60.0)
+        if mask == "whiteNoise":
+            annulus = _distance_mask(mapData.shape, wcs, row["RADeg"],
+                                     row["decDeg"],
+                                     2 * radiusArcmin / 60.0) & ~holeMask
+            vals = maskedData[annulus]
+            maskedData[holeMask] = rng.normal(vals.mean(), vals.std(),
+                                              holeMask.sum())
+        else:
+            maskedData[holeMask] = mask
+        maskMap[holeMask] = 1.0
+    return {"data": maskedData, "mask": maskMap}
+
+
+def applyPointSourceMask(maskFileName, mapData, mapWCS, mask=0.0,
+                         radiusArcmin=2.8):
+    """Blank map regions under a point-source mask file
+    (``maps.py:1160-1209``)."""
+    psMask, _ = nfits.read_image(maskFileName)
+    out = np.array(mapData)
+    out[np.asarray(psMask) == 0] = mask
+    return out
+
+
 # -----------------------------------------------------------------------------
 def getPixelAreaArcmin2Map(shape, wcs):
     """Pixel area in arcmin^2 vs position (``maps.py:1461-1482``)."""
@@ -691,3 +937,292 @@ def stitchTiles(config):
             if found:
                 nfits.write_image(outFileName, d, config.origWCS.header,
                                   compressionType=compression)
+
+
+
+# -----------------------------------------------------------------------------
+def sourceInjectionTest(config, rng=None):
+    """Inject objects with known properties, re-run the finder with cached
+    filters, and record position/flux recovery vs S/N
+    (``maps.py:1902-2199``).
+
+    Returns a Table with columns RADeg, decDeg, sourceInjectionModel,
+    [theta500Arcmin,] SNR, rArcmin, inFlux, outFlux, noiseLevel, tileName.
+    """
+    from . import pipelines
+    from .models import cosmology as cosmo_mod
+
+    realExclusionRadiusArcmin = 5.0
+    rng = rng or np.random.default_rng(config.parDict.get("seed"))
+
+    numIterations = config.parDict.get("sourceInjectionIterations", 1)
+    if "sourceInjectionModels" in config.parDict:
+        clusterMode = True
+        sourceInjectionModelList = config.parDict["sourceInjectionModels"]
+        fluxCol = "y_c"
+        noiseLevelCol = "err_y_c"
+        fiducial = cosmo_mod.fiducialCosmoModel()
+        for m in sourceInjectionModelList:
+            theta = cosmo_mod.calcTheta500Arcmin(m["redshift"], m["M500"],
+                                                 fiducial)
+            m["label"] = "%.2f" % theta
+            m["theta500Arcmin"] = theta
+    else:
+        clusterMode = False
+        sourceInjectionModelList = [{"label": "pointSource"}]
+        fluxCol = "deltaT_c"
+        noiseLevelCol = "err_deltaT_c"
+    numSourcesPerTile = config.parDict.get("sourcesPerTile", 300)
+
+    catFileName = os.path.join(
+        config.rootOutDir, "%s_optimalCatalog.fits"
+        % os.path.split(config.rootOutDir)[-1])
+    if not os.path.exists(catFileName):
+        raise FileNotFoundError("Catalog %s needed for injection test"
+                                % catFileName)
+    realCatalog = Table.read(catFileName)
+
+    results = {m["label"]: {"RADeg": [], "decDeg": [], "SNR": [],
+                            "rArcmin": [], "inFlux": [], "outFlux": [],
+                            "noiseLevel": [], "tileName": []}
+               for m in sourceInjectionModelList}
+    allInputCatalogs = []
+
+    for modelCount, model in enumerate(sourceInjectionModelList, 1):
+        print(">>> Source injection model: %d/%d"
+              % (modelCount, len(sourceInjectionModelList)))
+        for it in range(numIterations):
+            config.restoreConfig()
+            for filtDict in config.parDict["mapFilters"]:
+                filtDict["params"]["GNFWParams"] = \
+                    config.parDict["GNFWParams"]
+                filtDict["params"]["saveFilteredMaps"] = False
+                filtDict["params"]["savePlots"] = False
+            # Reference filter only (maps.py:2019-2025)
+            photFilter = config.parDict["photFilter"]
+            filtDict = next(
+                (f for f in config.parDict["mapFilters"]
+                 if photFilter is None or f["label"] == photFilter),
+                config.parDict["mapFilters"][0])
+            config.parDict["mapFilters"] = [filtDict]
+
+            if "ArnaudModel" in filtDict["class"]:
+                ampRange = config.parDict.get(
+                    "sourceInjectionAmplitudeRange", [0.001, 10])
+                if ampRange == "auto":
+                    ampRange = [np.min(realCatalog["fixed_y_c"]) * 0.5,
+                                np.max(realCatalog["fixed_y_c"])]
+                distribution = config.parDict.get(
+                    "sourceInjectionDistribution", "linear")
+                mockCatalog = catalogs.generateTestCatalog(
+                    config, numSourcesPerTile,
+                    amplitudeColumnName=fluxCol, amplitudeRange=ampRange,
+                    amplitudeDistribution=distribution, maskDilationPix=20,
+                    seed=rng.integers(0, 2 ** 31 - 1))
+                injectSources = {"catalog": mockCatalog,
+                                 "GNFWParams": config.parDict["GNFWParams"],
+                                 "override": model, "profile": "A10"}
+            elif "Beam" in filtDict["class"]:
+                ampRange = config.parDict.get(
+                    "sourceInjectionAmplitudeRange", [1, 1000])
+                distribution = config.parDict.get(
+                    "sourceInjectionDistribution", "log")
+                mockCatalog = catalogs.generateTestCatalog(
+                    config, numSourcesPerTile,
+                    amplitudeColumnName=fluxCol, amplitudeRange=ampRange,
+                    amplitudeDistribution=distribution, maskDilationPix=20,
+                    seed=rng.integers(0, 2 ** 31 - 1))
+                injectSources = {"catalog": mockCatalog, "override": model,
+                                 "profile": None}
+            else:
+                raise ValueError("No injection catalog generator for "
+                                 "filter class '%s'" % filtDict["class"])
+            if "theta500Arcmin" in model:
+                mockCatalog["theta500Arcmin"] = model["theta500Arcmin"]
+            allInputCatalogs.append(mockCatalog)
+
+            for mapDict in config.unfilteredMapsDictList:
+                mapDict["injectSources"] = injectSources
+                mapDict["_preprocessedTile"] = None  # force re-preprocess
+
+            if len(mockCatalog) == 0:
+                continue
+            recCatalog = pipelines.filterMapsAndMakeCatalogs(
+                config, useCachedFilters=True, useCachedRMSMap=True,
+                writeAreaMask=False, writeFlagMask=False, verbose=False)
+            if len(recCatalog) > 0:
+                recCatalog = catalogs.removeCrossMatched(
+                    recCatalog, realCatalog,
+                    radiusArcmin=realExclusionRadiusArcmin)
+            if len(recCatalog) == 0:
+                continue
+            x_mock, x_rec, rDeg = catalogs.crossMatch(
+                mockCatalog, recCatalog,
+                radiusArcmin=realExclusionRadiusArcmin)
+            # Bright injected objects recovered far off position signal a
+            # pipeline problem (reference maps.py:2115-2131)
+            offsets = np.asarray(rDeg, dtype=float)
+            snrs = np.asarray(x_rec["SNR"], dtype=float)
+            bad = np.logical_and(offsets > 1.5, snrs > 10)
+            if bad.any():
+                msg = ("Recovered %d bright injected source(s) at "
+                       "> 1.5 arcmin offset" % int(bad.sum()))
+                if config.parDict.get("haltOnPositionRecoveryProblem"):
+                    raise RuntimeError(msg)
+                print("... Warning: %s ..." % msg)
+            r = results[model["label"]]
+            r["RADeg"] += list(np.asarray(x_rec["RADeg"]))
+            r["decDeg"] += list(np.asarray(x_rec["decDeg"]))
+            r["SNR"] += list(np.asarray(x_rec["SNR"]))
+            r["rArcmin"] += list(rDeg)
+            r["inFlux"] += list(np.asarray(x_mock[fluxCol]))
+            r["outFlux"] += list(np.asarray(x_rec[fluxCol]))
+            r["noiseLevel"] += list(np.asarray(x_rec[noiseLevelCol]))
+            r["tileName"] += list(np.asarray(x_rec["tileName"]))
+
+    # Collect everything (maps.py:2151-2186)
+    cols = {"RADeg": [], "decDeg": [], "sourceInjectionModel": [],
+            "SNR": [], "rArcmin": [], "inFlux": [], "outFlux": [],
+            "noiseLevel": [], "tileName": []}
+    theta500s = []
+    for model in sourceInjectionModelList:
+        label = model["label"]
+        n = len(results[label]["SNR"])
+        cols["sourceInjectionModel"] += [label] * n
+        if "theta500Arcmin" in model:
+            theta500s += [model["theta500Arcmin"]] * n
+        for key in ("RADeg", "decDeg", "SNR", "rArcmin", "inFlux",
+                    "outFlux", "noiseLevel", "tileName"):
+            cols[key] += results[label][key]
+    resultsTable = Table({k: np.array(v) for k, v in cols.items()})
+    if len(theta500s) == len(resultsTable):
+        resultsTable["theta500Arcmin"] = np.array(theta500s)
+
+    allInputTab = vstack(allInputCatalogs)
+    allInputTab.rename_column(fluxCol, "inFlux")
+    allInputTab = catalogs.removeCrossMatched(
+        allInputTab, realCatalog, radiusArcmin=realExclusionRadiusArcmin)
+    allInputTab.write(os.path.join(config.selFnDir,
+                                   "sourceInjectionInputCatalog.fits"))
+    config.restoreConfig()
+    for mapDict in config.unfilteredMapsDictList:
+        mapDict.pop("injectSources", None)
+        mapDict["_preprocessedTile"] = None
+    return resultsTable
+
+
+def positionRecoveryAnalysis(posRecTable, plotFileName,
+                             percentiles=[50, 95, 99.7], plotRawData=True,
+                             pickleFileName=None, selFnDir=None):
+    """Fit the position-recovery model offset(SNR) and plot
+    (``maps.py:2202-2344``)."""
+    import pickle
+    from scipy.optimize import curve_fit
+
+    snr = np.asarray(posRecTable["SNR"], dtype=float)
+    rArcmin = np.asarray(posRecTable["rArcmin"], dtype=float)
+    binEdges = np.linspace(max(snr.min(), 4.0), min(snr.max(), 20.0), 11)
+    fitResults = {}
+    for percentile in percentiles:
+        centres, values = [], []
+        for i in range(len(binEdges) - 1):
+            sel = (snr >= binEdges[i]) & (snr < binEdges[i + 1])
+            if sel.sum() >= 5:
+                centres.append((binEdges[i] + binEdges[i + 1]) / 2)
+                values.append(np.percentile(rArcmin[sel], percentile))
+        centres = np.array(centres)
+        values = np.array(values)
+        params = None
+        if len(centres) >= 3:
+            try:
+                params, _ = curve_fit(catalogs._posRecFitFunc, centres,
+                                      values, p0=[1.16, 0.7, 38.0],
+                                      maxfev=20000)
+            except Exception:
+                params = None
+        fitResults[percentile] = {"centres": centres, "values": values,
+                                  "params": params}
+    if pickleFileName is not None:
+        with open(pickleFileName, "wb") as f:
+            pickle.dump(fitResults, f)
+    if selFnDir is not None and fitResults.get(99.7, {}).get("params") \
+            is not None:
+        with open(os.path.join(selFnDir, "positionRecoveryModel.pkl"),
+                  "wb") as f:
+            pickle.dump({"func": "posRecFitFunc",
+                         "params": fitResults[99.7]["params"]}, f)
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig = plt.figure(figsize=(9, 6.5))
+        if plotRawData:
+            plt.plot(snr, rArcmin, ".", alpha=0.3, label="raw")
+        for percentile, d in fitResults.items():
+            if len(d["centres"]):
+                plt.plot(d["centres"], d["values"], "o-",
+                         label="%.1f%%" % percentile)
+        plt.semilogy()
+        plt.xlabel("SNR")
+        plt.ylabel("offset (arcmin)")
+        plt.legend()
+        plt.savefig(plotFileName)
+        plt.close(fig)
+    except Exception:
+        pass
+    return fitResults
+
+
+def noiseBiasAnalysis(sourceInjTable, plotFileName=None,
+                      sourceInjectionModel=None):
+    """Quantify flux 'optimization bias' vs S/N from source-injection
+    results (``maps.py:2347-2368``): the ratio outFlux/inFlux binned by
+    recovered SNR, fit with the reference's snr-fold model."""
+    from scipy.optimize import curve_fit
+
+    tab = sourceInjTable
+    if sourceInjectionModel is not None and \
+            "sourceInjectionModel" in tab.keys():
+        tab = tab[np.asarray(tab["sourceInjectionModel"])
+                  == sourceInjectionModel]
+    snr = np.asarray(tab["SNR"], dtype=float)
+    ratio = np.asarray(tab["outFlux"], dtype=float) \
+        / np.asarray(tab["inFlux"], dtype=float)
+    binEdges = np.linspace(max(4.0, snr.min()), min(snr.max(), 20.0), 11)
+    centres, med = [], []
+    for i in range(len(binEdges) - 1):
+        sel = (snr >= binEdges[i]) & (snr < binEdges[i + 1])
+        if sel.sum() >= 5:
+            centres.append((binEdges[i] + binEdges[i + 1]) / 2)
+            med.append(np.median(ratio[sel]))
+    centres = np.array(centres)
+    med = np.array(med)
+
+    def biasFunc(s, snrFold, pedestal, norm):
+        return norm * np.exp(-s / snrFold) + pedestal
+
+    params = None
+    if len(centres) >= 3:
+        try:
+            params, _ = curve_fit(biasFunc, centres, med,
+                                  p0=[2.0, 1.0, 0.5], maxfev=20000)
+        except Exception:
+            params = None
+    if plotFileName is not None:
+        try:
+            from . import plotSettings
+            plotSettings.update_rcParams()
+            import matplotlib.pyplot as plt
+            plt.figure(figsize=(9, 6.5))
+            plt.plot(snr, ratio, ".", alpha=0.3)
+            plt.plot(centres, med, "o-", label="median")
+            plt.axhline(1.0, color="k", ls="--")
+            plt.xlabel("SNR")
+            plt.ylabel("outFlux / inFlux")
+            plt.legend()
+            plt.savefig(plotFileName)
+            plt.close()
+        except Exception:
+            pass
+    return {"func": biasFunc, "params": params, "binCentres": centres,
+            "medianRatio": med}

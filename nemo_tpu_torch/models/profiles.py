@@ -1,10 +1,10 @@
-"""Cluster / source signal templates for the filter bank.
+"""Cluster / source signal maps: filter-bank templates and model images.
 
-Port of ``nemo_tpu/models/profiles.py`` in its centred (template) mode:
-1-d GNFW line-of-sight profile -> beam convolution in harmonic space
-(FFTLog Hankel transform, host numpy) -> radial painting at the map centre
-(torch, on the policy's device).  Painting many objects at sub-pixel
-positions (``ys``/``xs``) waits for the port of ``ops.paint.paint_objects``.
+Port of ``nemo_tpu/models/profiles.py``: 1-d GNFW line-of-sight profile ->
+beam convolution in harmonic space (FFTLog Hankel transform, host numpy)
+-> radial painting (torch, on the given device), centred on the map
+(templates) or at sub-pixel object positions ``ys``/``xs``
+(:func:`..ops.paint.paint_objects`).
 """
 
 import numpy as np
@@ -15,11 +15,6 @@ from ..ops.hankel import RadialFourierTransform
 from . import cosmology as cosmo_mod
 from . import gnfw
 from .beams import BeamProfile
-
-_OBJECTS_TODO = ("painting objects at given positions (ys/xs) needs "
-                 "ops.paint.paint_objects, not ported yet (ROADMAP.md "
-                 "queue 1, item 10: sims and injection)")
-
 
 def makeArnaudModelProfile(z, M500, GNFWParams="default", cosmoModel=None):
     """Unit-peak cylindrical A10 profile for a cluster of (z, M500c):
@@ -106,26 +101,41 @@ def _centred(shape, pix_scales_rad, r, v, scale, returnDevice, device,
     return np.asarray(scale) * out.cpu().numpy()
 
 
+def _positioned(shape, pix_scales_rad, ys, xs, amps, r, v, rmaxDeg,
+                dx_rows, returnDevice, device, dtype):
+    out = paint_ops.paint_objects(
+        shape, pix_scales_rad, np.atleast_1d(ys), np.atleast_1d(xs),
+        np.atleast_1d(amps), r, v, np.radians(rmaxDeg), dx_rows=dx_rows,
+        device=device, dtype=dtype)
+    return out if returnDevice else out.cpu().numpy()
+
+
 def paintSignalMap(shape, pix_scales_rad, rDeg, prof, beam=None,
                    ys=None, xs=None, amplitude=None, maxSizeDeg=10.0,
                    convolveWithBeam=True, returnDevice=False,
-                   device=None, dtype=torch.float64):
-    """Paint a radial profile centred on a (ny, nx) map.
+                   dx_rows=None, device=None, dtype=torch.float64):
+    """Paint object(s) with a shared radial profile into a (ny, nx) map.
 
     Args:
         beam: BeamProfile or beam file path (required if convolveWithBeam).
-        amplitude: peak amplitude *before* beam convolution; None = the
+        ys, xs: float pixel coords; default = map centre (template mode).
+        amplitude: peak amplitude(s) *before* beam convolution; None = the
             unnormalised template.
+        maxSizeDeg: truncation radius for positioned painting.
+        dx_rows: per-row x pixel scales (radians) for positioned painting.
         returnDevice: return the torch tensor (on ``device``) instead of a
             host numpy array.
     """
-    if ys is not None or xs is not None:
-        raise NotImplementedError(_OBJECTS_TODO)
     r, vAbs, scale = signalTemplateTable(
         rDeg, prof, beam=beam, amplitude=amplitude, maxSizeDeg=maxSizeDeg,
         convolveWithBeam=convolveWithBeam)
-    return _centred(shape, pix_scales_rad, r, vAbs, scale, returnDevice,
-                    device, dtype)
+    if ys is None:
+        return _centred(shape, pix_scales_rad, r, vAbs, scale,
+                        returnDevice, device, dtype)
+    # per-object amplitudes: the (exact) sign negation folds into the
+    # per-object scale
+    return _positioned(shape, pix_scales_rad, ys, xs, scale, r, vAbs,
+                       maxSizeDeg, dx_rows, returnDevice, device, dtype)
 
 
 def beamTemplateTable(beam, amplitude=None):
@@ -138,46 +148,51 @@ def beamTemplateTable(beam, amplitude=None):
 
 def makeBeamModelSignalMap(shape, pix_scales_rad, beam, ys=None, xs=None,
                            amplitude=None, maxSizeDeg=None,
-                           returnDevice=False, device=None,
+                           returnDevice=False, dx_rows=None, device=None,
                            dtype=torch.float64):
     """Signal map containing the beam itself (point-source template),
-    centred on the map."""
-    if ys is not None or xs is not None:
-        raise NotImplementedError(_OBJECTS_TODO)
+    centred on the map or at ``ys``/``xs`` (truncated at ``maxSizeDeg``,
+    default the beam table's end)."""
+    if isinstance(beam, str):
+        beam = BeamProfile(beamFileName=beam)
     r, prof, amp = beamTemplateTable(beam, amplitude)
-    return _centred(shape, pix_scales_rad, r, prof, amp, returnDevice,
-                    device, dtype)
+    if ys is None:
+        return _centred(shape, pix_scales_rad, r, prof, amp, returnDevice,
+                        device, dtype)
+    rmax = maxSizeDeg if maxSizeDeg is not None else beam.rDeg[-1]
+    return _positioned(shape, pix_scales_rad, ys, xs, amp, r, prof, rmax,
+                       dx_rows, returnDevice, device, dtype)
 
 
 def makeArnaudModelSignalMap(z, M500, shape, pix_scales_rad, beam=None,
                              ys=None, xs=None, GNFWParams="default",
                              amplitude=None, maxSizeDeg=15.0,
                              convolveWithBeam=True, cosmoModel=None,
-                             returnDevice=False, device=None,
+                             returnDevice=False, dx_rows=None, device=None,
                              dtype=torch.float64):
-    """A10 cluster template centred on the map."""
+    """A10 cluster signal map (centred template, or objects at ys/xs)."""
     d = makeArnaudModelProfile(z, M500, GNFWParams=GNFWParams,
                                cosmoModel=cosmoModel)
     return paintSignalMap(shape, pix_scales_rad, d["rDeg"], d["prof"],
                           beam=beam, ys=ys, xs=xs, amplitude=amplitude,
                           maxSizeDeg=maxSizeDeg,
                           convolveWithBeam=convolveWithBeam,
-                          returnDevice=returnDevice, device=device,
-                          dtype=dtype)
+                          returnDevice=returnDevice, dx_rows=dx_rows,
+                          device=device, dtype=dtype)
 
 
 def makeBattagliaModelSignalMap(z, M500, shape, pix_scales_rad, beam=None,
                                 ys=None, xs=None, GNFWParams="default",
                                 amplitude=None, maxSizeDeg=15.0,
                                 convolveWithBeam=True, cosmoModel=None,
-                                returnDevice=False, device=None,
-                                dtype=torch.float64):
-    """B12 cluster template centred on the map."""
+                                returnDevice=False, dx_rows=None,
+                                device=None, dtype=torch.float64):
+    """B12 cluster signal map (centred template, or objects at ys/xs)."""
     d = makeBattagliaModelProfile(z, M500, GNFWParams=GNFWParams,
                                   cosmoModel=cosmoModel)
     return paintSignalMap(shape, pix_scales_rad, d["rDeg"], d["prof"],
                           beam=beam, ys=ys, xs=xs, amplitude=amplitude,
                           maxSizeDeg=maxSizeDeg,
                           convolveWithBeam=convolveWithBeam,
-                          returnDevice=returnDevice, device=device,
-                          dtype=dtype)
+                          returnDevice=returnDevice, dx_rows=dx_rows,
+                          device=device, dtype=dtype)

@@ -185,11 +185,20 @@ def subpixel_read_batch(snBatch, fmBatch, ys, xs, window=16):
 
 def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
                              lean_outputs=False, detect_params=None,
-                             return_filter=False):
+                             return_filter=False, given_filter=False):
     """The production batched matched filter (the JAX package's
     ``make_sharded_matched_filter_step``): the host engine's math for a
     tile batch, returning unnormalised filtered maps plus the calibration
     crops from which the host fixes each tile's signal norm.
+
+    With ``given_filter`` the step applies pre-built filters instead
+    (cached-filter reruns: injection and contamination tests reload the
+    saved filters, as the host engine does): a function of (data, filt,
+    apodM, psMask, surveyMask, meta), with ``filt`` (T, nf, py, px//2+1),
+    that applies them and runs the same tail, with ``signalNorm`` all ones
+    (the host takes the norms from the cache headers) and no calibration.
+    Each call of a step adds one to ``make_matched_filter_step.calls``
+    under "build" or "given".
 
     Args of the returned function (leading tile axis T):
         data, noise: (T, nf, py, px) preprocessed maps, zero-padded (pass
@@ -290,6 +299,7 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
              fgPower, peakYX, meta):
         _check_one_device(data, noise, template, calib, w, apodM, psMask,
                           surveyMask, fgPower, peakYX)
+        make_matched_filter_step.calls["build"] += 1
         dt = data.dtype
         filtered, norms, filt, crops = one_batch(
             data, noise, template, calib, w, apodM, fgPower, peakYX)
@@ -299,4 +309,18 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
         return tail(filtered, norms, filterOut, apodM, psMask.to(dt),
                     surveyMask.to(dt), meta)
 
-    return step
+    def step_given(data, filt, apodM, psMask, surveyMask, meta):
+        _check_one_device(data, filt, apodM, psMask, surveyMask)
+        make_matched_filter_step.calls["given"] += 1
+        dt = data.dtype
+        ny, nx = data.shape[-2:]
+        fMaps = fourier.rfft2(data * apodM[:, None])
+        filtered = torch.sum(fourier.irfft2(fMaps * filt, (ny, nx)), dim=1)
+        norms = torch.ones(filtered.shape[0], dtype=dt, device=data.device)
+        return tail(filtered, norms, {}, apodM, psMask.to(dt),
+                    surveyMask.to(dt), meta)
+
+    return step_given if given_filter else step
+
+
+make_matched_filter_step.calls = {"build": 0, "given": 0}

@@ -23,8 +23,10 @@ padded up to ``deviceBatchSize`` (eager torch compiles nothing, and every
 output is per tile); downloads are plain ``.cpu()`` copies of the small
 results, with none of the JAX package's remote-link machinery (coalesced
 copy batches, bit-packed masks, pipeline and lag depths); the filter cache
-FITS is written synchronously.  The real-space and cached-filter steps are
-not ported yet.
+FITS is written synchronously, and cached-filter reruns read it back (no
+device-resident filter cache); a rerun that applies cached filters writes
+no RMS map (the host engine's rule).  The real-space step is not ported
+yet.
 """
 
 import functools
@@ -290,15 +292,34 @@ def _bankPaintOn(config):
                               and config.policy.device.type == "cuda")
 
 
+def _cachedFilter(filterObj):
+    """(filt, SIGNORM) from the tile's filter cache FITS, or (None, None)
+    when there is none of this filter's half-grid shape."""
+    if filterObj.filterFileName is None \
+            or not os.path.exists(filterObj.filterFileName):
+        return None, None
+    from ..utils import fits as nfits
+    nf = len(filterObj.unfilteredMapsDictList)
+    halfShape = (nf, filterObj.padShape[0], filterObj.padShape[1] // 2 + 1)
+    fdata, fheader = nfits.read_image(filterObj.filterFileName)
+    fdata = np.asarray(fdata, dtype=np.float64)
+    if tuple(fdata.shape) != halfShape:
+        return None, None
+    return fdata, float(fheader["SIGNORM"])
+
+
 def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
-                  diagnosticsDir=None, common=None, bank=None):
+                  diagnosticsDir=None, common=None, bank=None,
+                  useCachedFilter=False):
     """Host-side staging for one (tile, filter): the filter object, its
     signal and calibration templates (on the policy's device) and the
     masks.  Returns (filterObj, stacks dict) at tile shape.
 
     ``templateCache`` shares templates between tiles of identical
     geometry; ``common`` is a :func:`_stage_tile_common_from_maps` dict
-    shared by the bank's filters."""
+    shared by the bank's filters.  With ``useCachedFilter`` the tile's
+    saved filter and its SIGNORM are staged too (``cachedFilt``,
+    ``cachedNorm``; None where no cache of the right shape exists)."""
     filterClass = filters_mod.getFilterClass(f["class"])
     filterObj = filterClass(f["label"],
                             mapsList or config.unfilteredMapsDictList,
@@ -372,6 +393,8 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
             calibStack = templates
     unitsScale = y0 if params["outputUnits"] == "yc" else 1.0
     w = filters_mod._freq_weights(filterObj.unfilteredMapsDictList, params)
+    cachedFilt, cachedNorm = _cachedFilter(filterObj) if useCachedFilter \
+        else (None, None)
 
     gridSize = int(round(
         (params["noiseParams"]["noiseGridArcmin"] / 60.0)
@@ -389,6 +412,7 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
         common["_keepApplied"] = True
     return filterObj, {"common": common, "data": dataStack,
                        "noise": noiseStack, "fgPower": None,
+                       "cachedFilt": cachedFilt, "cachedNorm": cachedNorm,
                        "template": templates, "calib": calibStack, "w": w,
                        "apodM": common["apodM"],
                        "surveyMask": common["surveyMask"],
@@ -432,7 +456,8 @@ def batchFilterTiles(config, f, tileNames=None, undoPixelWindow=True,
 def batchFilterTilesMulti(config, fList, tileNames=None,
                           undoPixelWindow=True, verbose=True,
                           deviceBatchSize=None, consume=None,
-                          detectParams=None, diagnosticsDir=None):
+                          detectParams=None, diagnosticsDir=None,
+                          useCachedFilters=False):
     """Batched filtering of every (tile, filter) combination.
 
     ``consume(label, tileName, filteredMapDict) -> bool``: optional
@@ -445,6 +470,11 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
     the device work); a chunk is flushed to the device as soon as
     ``deviceBatchSize`` tiles of one padded-shape bucket are staged
     (default 2 per device: 2 on one GPU; config key ``deviceBatchSize``).
+
+    ``useCachedFilters``: a label whose every tile of a chunk has a saved
+    filter applies the saved filters with the given-filter step (no
+    filter build, no calibration: the norms come from the cache headers),
+    as the host engine reloads them; otherwise it builds.
 
     Returns {filterLabel: {tileName: filteredMapDict}} of the results not
     consumed.
@@ -504,7 +534,8 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
                                      templateCache=templateCache,
                                      mapsList=mapsList, common=common,
                                      diagnosticsDir=diagnosticsDir,
-                                     bank=mfBank)
+                                     bank=mfBank,
+                                     useCachedFilter=useCachedFilters)
                 for f in fList]
 
     # One staging worker with a bounded look-ahead: tiles are staged in
@@ -708,7 +739,8 @@ _DET_KEYS = ("valid", "numPix", "comY", "comX", "peak", "peakY", "peakX")
 
 def _consume_detect_results(config, st, names, out, gridSize, trimPix,
                             detectParams, label, photLabel, photRes,
-                            seenTiles, tPhase, results, consume, hostNorms):
+                            seenTiles, tPhase, results, consume, hostNorms,
+                            saveRMS):
     """Host side of detection mode: download the O(K) statistics, the
     sub-pixel reads and the RMS cell grid, and assemble per-tile results
     for ``photometry.catalogFromDeviceDetections``.  A tile over the
@@ -733,7 +765,6 @@ def _consume_detect_results(config, st, names, out, gridSize, trimPix,
     vals = _download(torch.cat(valParts, dim=-1), tPhase)
     cells = _download(out["RMSCells"], tPhase)
 
-    saveRMS = st[names[0]][0].params.get("saveRMSMap")
     for i, tileName in enumerate(names):
         filterObj, stacks = st[tileName]
         shape = stacks["shape"]
@@ -940,7 +971,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
     tPhase = {"stageWait": stageWait, "upload": ctx["stageUpload"],
               "step": 0.0, "download": 0.0, "hostOther": 0.0,
               "downBytes": 0, "consume": 0.0, "detectLabels": 0,
-              "detectTiles": 0, "overflowTiles": 0}
+              "detectTiles": 0, "overflowTiles": 0, "givenLabels": 0}
     halfShape = (padShape[0], padShape[1] // 2 + 1)
     # -inf, not 0: the step's max(prods, fg) must be a no-op for the
     # dataMap method (about half the cross-band covariance is negative)
@@ -956,30 +987,46 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
         params0 = st[names[0]][0].params
         useDetect = detectParams is not None \
             and not params0.get("saveFilteredMaps")
-        wantFilter = bool(params0.get("saveFilter"))
-        saveRMS = params0.get("saveRMSMap")
+        # cached-filter rerun: apply the saved filters, build none
+        given = all(sk.get("cachedFilt") is not None for sk in stacksList)
+        wantFilter = bool(params0.get("saveFilter")) and not given
+        # a rerun on cached filters writes no RMS map, as the host engine
+        # (MatchedFilter.buildAndApply) does when it loads a cache
+        saveRMS = params0.get("saveRMSMap") and not given
         step = make_matched_filter_step(
             gridSize, trimPix, lean_outputs=not useDetect,
             detect_params=detectParams if useDetect else None,
-            return_filter=wantFilter)
+            return_filter=wantFilter, given_filter=given)
         t0 = time.time()
-        noiseDev = dataDev if all(sk["noise"] is sk["data"]
-                                  for sk in stacksList) \
-            else ctx["put"]([sk["noise"] for sk in stacksList])
-        out = step(dataDev, noiseDev,
-                   ctx["putDedup"]([sk["template"] for sk in stacksList]),
-                   ctx["putDedup"]([sk["calib"] for sk in stacksList]),
-                   P.tensor(stacksList[0]["w"]), ctx["apodDev"],
-                   ctx["psDev"], ctx["surveyDev"], fgNone, ctx["peakDev"],
-                   ctx["meta"])
+        if given:
+            out = step(dataDev, P.tensor(np.stack(
+                [sk["cachedFilt"] for sk in stacksList])), ctx["apodDev"],
+                ctx["psDev"], ctx["surveyDev"], ctx["meta"])
+        else:
+            noiseDev = dataDev if all(sk["noise"] is sk["data"]
+                                      for sk in stacksList) \
+                else ctx["put"]([sk["noise"] for sk in stacksList])
+            out = step(dataDev, noiseDev,
+                       ctx["putDedup"]([sk["template"]
+                                        for sk in stacksList]),
+                       ctx["putDedup"]([sk["calib"] for sk in stacksList]),
+                       P.tensor(stacksList[0]["w"]), ctx["apodDev"],
+                       ctx["psDev"], ctx["surveyDev"], fgNone,
+                       ctx["peakDev"], ctx["meta"])
         _sync(dev)
         tPhase["step"] += time.time() - t0
 
         tEmit, down0, cons0 = time.time(), tPhase["download"], \
             tPhase["consume"]
-        hostNorms, fRelW = _calibNormsFromCrops(
-            _download(out["calibCrop"], tPhase),
-            _download(out["signalNorm"], tPhase), st, names, padShape)
+        if given:
+            # host convention: the cached SIGNORM includes the units scale
+            hostNorms = np.array([sk["cachedNorm"] / sk["unitsScale"]
+                                  for sk in stacksList])
+            tPhase["givenLabels"] += 1
+        else:
+            hostNorms, fRelW = _calibNormsFromCrops(
+                _download(out["calibCrop"], tPhase),
+                _download(out["signalNorm"], tPhase), st, names, padShape)
         if wantFilter:
             _saveFilterCaches(st, names, out["filt"], tPhase, hostNorms,
                               fRelW)
@@ -988,7 +1035,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
             _consume_detect_results(
                 config, st, names, out, gridSize, trimPix, detectParams,
                 label, photLabel, photRes, seenTiles, tPhase, results,
-                consume, hostNorms)
+                consume, hostNorms, saveRMS)
             if label == photLabel:
                 photRes = {"SNMap": out["SNMap"],
                            "filtered": out["filtered"],

@@ -6,9 +6,10 @@ detected and measured on the host; with ``useDeviceBatching: true`` the
 batched engine (:mod:`.parallel.engine`) filters chunks of tiles in one
 device call per (chunk, filter), optionally detecting objects on the
 device too, and streams each result into the same catalog stage.  The
-cached-RMS-map and cached-filtered-map reruns (forced photometry, nemoMass)
-reload the selection-function products, and :func:`makeRMSTables` writes
-the noise-area tables the selection function reads.
+cached-filter, cached-RMS-map and cached-filtered-map reruns (source
+injection, forced photometry, nemoMass) reload the saved filters and
+selection-function products, and :func:`makeRMSTables` writes the
+noise-area tables the selection function reads.
 """
 
 import os
@@ -229,11 +230,10 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 invertMap=invertMap)
         catalogDict[label]["catalog"] = catalog
 
-    if config.parDict.get("useDeviceBatching") and undoPixelWindow \
-            and not useCachedFilteredMaps:
+    if config.parDict.get("useDeviceBatching") and not useCachedFilteredMaps:
         _runBatched(config, filtersList, catalogDict, photMaps,
                     _processFilteredMap, diagnosticsDir, useCachedFilters,
-                    measureFluxes, invertMap, verbose)
+                    undoPixelWindow, measureFluxes, invertMap, verbose)
 
     for tileName in config.tileNames:
         if verbose:
@@ -383,22 +383,17 @@ def makeRMSTables(config):
 
 def _runBatched(config, filtersList, catalogDict, photMaps,
                 processFilteredMap, diagnosticsDir, useCachedFilters,
-                measureFluxes, invertMap, verbose):
+                undoPixelWindow, measureFluxes, invertMap, verbose):
     """The ``useDeviceBatching`` branch: every eligible filter runs over
     all tiles through the batched engine, and each result streams through
     ``processFilteredMap`` as its chunk completes.  Host-only filters of a
     mixed bank run tile-locally inside the sink, so peak memory stays one
-    chunk whatever the bank."""
+    chunk whatever the bank.  Cached-filter reruns (injection tests) apply
+    the saved filters with the engine's given-filter step; the cached-RMS
+    rerun (``undoPixelWindow`` False) detects on the host, against the
+    selection function's RMS maps."""
     from .parallel import engine as batch_engine
 
-    if useCachedFilters:
-        # cached-filter reruns reload the saved filters (the host engine
-        # does); the batched given-filter step is not ported yet
-        if verbose:
-            print("... useCachedFilters: every filter runs on the per-tile "
-                  "engine (the batched cached-filter step is not ported "
-                  "yet, ROADMAP.md queue 1, item 8)", flush=True)
-        return
     eligible = [f for f in filtersList
                 if batch_engine.eligibleForBatch(f, config.parDict)]
     if not eligible:
@@ -424,7 +419,9 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
                         config.unfilteredMapsDictList, f, tileName,
                         diagnosticsDir=diagnosticsDir,
                         selFnDir=config.selFnDir, verbose=verbose,
-                        undoPixelWindow=True, policy=config.policy)
+                        undoPixelWindow=undoPixelWindow,
+                        useCachedFilter=useCachedFilters,
+                        policy=config.policy)
                 processFilteredMap(f, tileName, fmd)
                 del fmd
         photMaps.pop(tileName, None)
@@ -444,6 +441,8 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
         reasons.append("mixed filter bank (host-only labels present)")
     if not measureFluxes:
         reasons.append("measureFluxes off")
+    if not undoPixelWindow:
+        reasons.append("cached RMS rerun")
     for key, on in (("forced photometry",
                      config.parDict.get("forcedPhotometryCatalog")),
                     ("inverted map", invertMap),
@@ -471,6 +470,7 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
     # for the whole bank
     with GLOBAL_TIMER.stage("filterMapsBatched"):
         batch_engine.batchFilterTilesMulti(
-            config, eligible, undoPixelWindow=True, verbose=verbose,
-            consume=consume, detectParams=detectParams,
-            diagnosticsDir=diagnosticsDir)
+            config, eligible, undoPixelWindow=undoPixelWindow,
+            verbose=verbose, consume=consume, detectParams=detectParams,
+            diagnosticsDir=diagnosticsDir,
+            useCachedFilters=useCachedFilters)

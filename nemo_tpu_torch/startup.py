@@ -284,7 +284,7 @@ class NemoConfig:
             self.tileNames = list(self.tileCoordsDict.keys())
             self.unfilteredMapsDictList = maps.MapDictList(
                 self.parDict["unfilteredMaps"],
-                tileCoordsDict=self.tileCoordsDict)
+                tileCoordsDict=self.tileCoordsDict, policy=self.policy)
             self._origUnfilteredMapsDictList = copy.deepcopy(
                 self.unfilteredMapsDictList)
 
@@ -492,7 +492,7 @@ class NemoConfig:
         self.tileNames = list(self.tileCoordsDict.keys())
         self.unfilteredMapsDictList = maps.MapDictList(
             self.parDict["unfilteredMaps"],
-            tileCoordsDict=self.tileCoordsDict)
+            tileCoordsDict=self.tileCoordsDict, policy=self.policy)
         self._origUnfilteredMapsDictList = copy.deepcopy(
             self.unfilteredMapsDictList)
 

@@ -387,3 +387,69 @@ def test_boltzmann_division_is_ieee(cuda_card):
         | (torch.isnan(q) & torch.isnan(ref))
     assert bool(same.all()), int((~same).sum())
     assert bool(fast[n // 2:n].bool().all())
+
+
+def paint_inputs(seed=8, n=10000, shape=(3584, 6144)):
+    """10,000 point sources of a 1.4' beam at 0.5' over a 3584 x 6144 map
+    (the survey of chip_smoke's phases 7 on), 61 x 61 windows."""
+    rng = np.random.default_rng(seed)
+    ys = rng.uniform(0, shape[0], n)
+    xs = rng.uniform(0, shape[1], n)
+    amps = 10 ** rng.uniform(1, 3, n)
+    r = np.radians(np.linspace(0, 20.0, 2000) / 60.0)
+    sigma = np.radians(1.4 / 60.0) / np.sqrt(8 * np.log(2))
+    pix = np.radians(0.5 / 60.0)
+    return (shape, (pix, pix), ys, xs, amps, r, np.exp(-0.5 * (r / sigma)
+                                                       ** 2),
+            np.radians(0.25))
+
+
+@pytest.mark.cuda
+def test_paint_objects_on_card(cuda_card):
+    """paint_objects on the card against the CPU float64 run (float64
+    rtol 1e-12, float32 1e-5 of the peak), and deterministic: two float32
+    calls are bitwise equal (no atomics in the sum)."""
+    from nemo_tpu_torch.ops import paint
+    args = paint_inputs()
+    ref = paint.paint_objects(*args).numpy()
+    got = paint.paint_objects(*args, device=cuda_card).cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+    a = paint.paint_objects(*args, device=cuda_card, dtype=torch.float32)
+    b = paint.paint_objects(*args, device=cuda_card, dtype=torch.float32)
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_given_step_on_card_matches_cpu(cuda_card):
+    """The given-filter step (cached-filter reruns) on the card against
+    the CPU float64 run, lean tail: float64 rtol 1e-9; the grid RMS went
+    through the kernel."""
+    from nemo_tpu_torch.parallel import distribute
+    args, meta, grid = step_inputs()
+    build = distribute.make_matched_filter_step(grid, 10, lean_outputs=True,
+                                                return_filter=True)
+    t = {k: torch.as_tensor(v) for k, v in args.items()}
+    filt = build(t["data"], t["data"], t["template"], t["calib"], t["w"],
+                 t["apodM"], t["psMask"], t["surveyMask"], t["fg"],
+                 t["peakYX"], meta)["filt"]
+    given = distribute.make_matched_filter_step(grid, 10, lean_outputs=True,
+                                                given_filter=True)
+    ref = given(t["data"], filt, t["apodM"], t["psMask"], t["surveyMask"],
+                meta)
+    launches = tn.rms_cells.launches
+    plain = tn._rms_cells_plain.calls
+    got = given(*(x.to(cuda_card) for x in (t["data"], filt, t["apodM"],
+                                            t["psMask"], t["surveyMask"])),
+                meta)
+    torch.cuda.synchronize()
+    assert tn.rms_cells.launches == launches + 1
+    assert tn._rms_cells_plain.calls == plain
+    for k in ("filtered", "RMSCells", "signalNorm"):
+        r = ref[k].numpy()
+        np.testing.assert_allclose(got[k].cpu().numpy(), r, rtol=1e-9,
+                                   atol=1e-9 * np.abs(r).max())
+    np.testing.assert_array_equal(got["surveyMask"].cpu().numpy(),
+                                  ref["surveyMask"].numpy())

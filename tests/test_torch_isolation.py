@@ -73,7 +73,10 @@ def test_port_imports_no_jax_and_no_nemo_tpu():
     # the batched engine and the device detection are covered
     for mod in ("nemo_tpu_torch.parallel.engine",
                 "nemo_tpu_torch.parallel.distribute",
-                "nemo_tpu_torch.ops.detect", "nemo_tpu_torch.completeness",
+                "nemo_tpu_torch.ops.detect", "nemo_tpu_torch.ops.paint",
+                "nemo_tpu_torch.maps", "nemo_tpu_torch.filters",
+                "nemo_tpu_torch.models.profiles",
+                "nemo_tpu_torch.cli.nemo_main", "nemo_tpu_torch.completeness",
                 "nemo_tpu_torch.models.boltzmann",
                 "nemo_tpu_torch.models.qfit",
                 "nemo_tpu_torch.models.scaling", "nemo_tpu_torch.mock",
@@ -126,3 +129,59 @@ def test_device_threading_is_all_that_differs():
             assert "device" not in f.read(), rel
         with open(os.path.join(ROOT, "nemo_tpu_torch", rel)) as f:
             assert "device=" in f.read(), rel
+
+
+# Data files the port carries as its own copies of nemo_tpu's.
+COPIED_DATA = ["data/lensed_cl_tt.txt"]
+
+
+@pytest.mark.parametrize("rel", COPIED_DATA)
+def test_copied_data_matches_source(rel):
+    """The port reads its own copy, so a copy that drifts (or goes
+    missing) would change results silently."""
+    with open(os.path.join(ROOT, "nemo_tpu", rel), "rb") as f:
+        src = f.read()
+    with open(os.path.join(ROOT, "nemo_tpu_torch", rel), "rb") as f:
+        assert f.read() == src, "nemo_tpu_torch/%s drifted" % rel
+
+
+def test_no_path_into_nemo_tpu():
+    """Neither the port nor chip_smoke.py builds a path into the JAX
+    package's tree (a bare "nemo_tpu" path component, or a "nemo_tpu/..."
+    string other than a source reference "file.py:line"), which the
+    machine with the card may not have."""
+    pattern = re.compile(r"""(["'])nemo_tpu\1|["']nemo_tpu/(?![\w/]+\.py:)""")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    pkg = os.path.dirname(nemo_tpu_torch.__file__)
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, f) for f in names
+                  if f.endswith(".py")]
+    for path in files:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                assert not pattern.search(line), (path, n, line)
+
+
+# Host functions the port copies out of modules it otherwise ports: the
+# same source text as nemo_tpu's.
+COPIED_FUNCTIONS = [("maps.py", name) for name in (
+    "addWhiteNoise", "maskOutSources", "applyPointSourceMask",
+    "sourceInjectionTest", "positionRecoveryAnalysis", "noiseBiasAnalysis",
+    "pixScaleXRadPerRow")]
+
+
+def _function_source(path, name):
+    import ast
+    with open(path) as f:
+        text = f.read()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise KeyError("%s has no function %s" % (path, name))
+
+
+@pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS)
+def test_copied_function_matches_source(rel, name):
+    src = _function_source(os.path.join(ROOT, "nemo_tpu", rel), name)
+    dst = _function_source(os.path.join(ROOT, "nemo_tpu_torch", rel), name)
+    assert dst == src, "nemo_tpu_torch/%s:%s drifted" % (rel, name)
