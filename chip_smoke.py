@@ -12,14 +12,17 @@ float64, and checks that both recover the injected clusters alike; then a
 16-tile survey chunk through the batched engine, and the same survey
 through the ``nemo`` CLI with the DR5 selection-function epilogue (Q fit,
 RMS tables, completeness, mass-limit maps), through ``nemoMass``, and
-through ``nemo -I`` (the source-injection test).
+through ``nemo -I`` (the source-injection test); then the simulated skies
+on a survey at dec -47: model-noise filtering, the sky-sim contamination
+estimate and ``nemoModel``.
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
   1 card: name and power limit (nvidia-smi), torch and CUDA versions;
   2 build: nvcc builds of nemo_tpu_torch/csrc/rms_cells.cu,
-    label_components.cu and boltzmann_rk4.cu, started together, seconds,
-    and ptxas's register and spill report of the Boltzmann kernel;
+    label_components.cu, boltzmann_rk4.cu and legendre_contract.cu,
+    started together, seconds, and ptxas's register and spill report of
+    the Boltzmann and Legendre kernels;
   3 kernels vs plain versions on the card, timed with CUDA events in the
     order plain, kernel(s), kernel(s), plain, each beside its bound:
     rms_cells' staged and streaming variants (f64 rtol 1e-10, f32 rtol
@@ -75,7 +78,25 @@ non-zero and prints no result):
     first 2 iterations again on the per-tile engine, same seed: every
     injected object recovered at S/N >= 5 by either run found by both,
     within 0.1', y_c within rtol 5e-3.  The last iteration's rerun runs
-    under torch.profiler (card activity only) for its device-busy share.
+    under torch.profiler (card activity only) for its device-busy share;
+ 14 sims: (a) the Legendre kernel (csrc/legendre_contract.cu) against its
+    plain version on the rings of one dec -62 .. -54.5 tile at lmax = mmax
+    = 6,000, synthesis and analysis, float32 and float64, timed plain,
+    kernel, kernel, plain (float64 within 1e-10 of max |plain|; float32
+    within 1e-5 of the std, or of max |alm| in analysis), two kernel calls
+    bitwise equal; (b) the nemo CLI on the batched engine over phase 7's
+    survey re-centred at dec -47 (12 tiles on the curved path, 4 flat),
+    with the quickstart's two scales and noiseParams dataMap, model and
+    max(dataMap,CMB): seconds, stages, sims and clusters recovered; the
+    model run launches the synthesis 48 times with 16 flat draws and no
+    plain call; one curved tile's filters rebuilt on the CPU in float64
+    from the card's model stacks, its catalog against the card's by phase
+    6's rule; (c) two sky sims and the inverted maps on the dataMap run's
+    filter caches, the contamination tables; (d) nemoModel on a dec -55
+    tile with 50 clusters, -C --curved-cmb (lmax 12,000), -N 20 --lknee
+    2000: seconds by step, one analysis and three syntheses, the CMB's
+    variance, the draw's band powers at lmax 6,000 (within 5%) and the
+    noise's white level above the band limit.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 
@@ -744,8 +765,12 @@ def compare_runs(truth, gpuCat, cpuCat):
     """Every injected cluster recovered at fixed_SNR >= 5 by either run is
     recovered by both; positions within 0.1', fixed_y_c rtol 5e-3."""
     ig, ic = match(truth, gpuCat, 1.0), match(truth, cpuCat, 1.0)
-    snrG = np.where(ig >= 0, np.asarray(gpuCat["fixed_SNR"])[ig], 0)
-    snrC = np.where(ic >= 0, np.asarray(cpuCat["fixed_SNR"])[ic], 0)
+
+    def snr(cat):
+        return np.asarray(cat["fixed_SNR"]) if "fixed_SNR" in cat.keys() \
+            else fixed_snr(cat)
+    snrG = np.where(ig >= 0, snr(gpuCat)[ig], 0)
+    snrC = np.where(ic >= 0, snr(cpuCat)[ic], 0)
     sel = (snrG >= 5) | (snrC >= 5)
     missing = np.nonzero(sel & ((ig < 0) | (ic < 0)))[0]
     if len(missing):
@@ -770,10 +795,11 @@ def compare_runs(truth, gpuCat, cpuCat):
 
 # -- phases 7 to 9 ------------------------------------------------------------
 
-def survey_inputs(work, device="cuda"):
-    """Seeded two-band survey map of SURVEY_GRID tiles of SHAPE, with
-    SURVEY_CLUSTERS clusters inside each tile's trimmed interior, written
-    as float32 FITS; returns (config dict, truth)."""
+def survey_inputs(work, device="cuda", decDeg=0.0, ivar=False):
+    """Seeded two-band survey map of SURVEY_GRID tiles of SHAPE centred at
+    ``decDeg``, with SURVEY_CLUSTERS clusters inside each tile's trimmed
+    interior, written as float32 FITS (with ``ivar``, each band's inverse
+    variance map too); returns (config dict, truth)."""
     import torch
     from nemo_tpu_torch.models import beams, profiles, sz
     from nemo_tpu_torch.ops import fourier, paint
@@ -785,7 +811,7 @@ def survey_inputs(work, device="cuda"):
     grid, ty, tx = SURVEY_GRID, SHAPE[0], SHAPE[1]
     shape = (grid[0] * ty, grid[1] * tx)
     w = nwcs.makeWCS(shape, PIX_ARCMIN / 60.0, centreRADeg=60.0,
-                     centreDecDeg=0.0)
+                     centreDecDeg=decDeg)
     tiles, ys, xs = [], [], []
     inset = 3 * GRID_PIX // 2 + 20 + 30     # trim half-width + apod + margin
     rows, cols = 4, SURVEY_CLUSTERS // 4
@@ -833,6 +859,11 @@ def survey_inputs(work, device="cuda"):
         nfits.write_image(path, sky.astype(np.float32), w.header)
         entries.append({"mapFileName": path, "obsFreqGHz": freq,
                         "units": "uK", "beamFileName": beamFile})
+        if ivar:
+            entries[-1]["weightsFileName"] = os.path.join(
+                work, "ivar_%s.fits" % band)
+            nfits.write_image(entries[-1]["weightsFileName"], np.full(
+                shape, noiseUK ** -2.0, dtype=np.float32), w.header)
         del model, sky
     maskPath = os.path.join(work, "surveyMask.fits")
     nfits.write_image(maskPath, np.ones(shape, dtype=np.uint8), w.header)
@@ -1743,6 +1774,568 @@ def injection_phase(noise, detect, card, surveyDict, device="cuda"):
     return whole, reruns
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+SIM_LMAX = 6000              # maps.CURVED_AUTO_LMAX: the auto curved path
+MODEL_LMAX = 12000           # nemoModel's default CMB band limit (lensedClTT)
+SIM_DEC = -47.0              # phase 14's survey centre: dec ~ -62 .. -32
+# float operations of csrc/legendre_contract.cu per (m, ring) lane and l,
+# counted from the source: the recurrence c P, b Pp, their difference, a
+# times it; the |P| > 2^48 test; lam = P 2^S; then in synthesis two
+# products and two sums into F, in analysis the two products lam G and the
+# two sums of the ring reduction (R - 1 of them a row, one a lane)
+LEGENDRE_OPS_PER_LANE_STEP = {"synthesis": 10, "analysis": 10}
+
+
+def legendre_rings_of_tile(shape=SHAPE, decDeg=-58.25):
+    """Colatitudes, FFT length and ring weights of one 896 x 1536 tile at
+    0.5' centred at ``decDeg`` (dec -62 .. -54.5 by default)."""
+    from nemo_tpu_torch.ops import sht
+    from nemo_tpu_torch.utils import wcs as nwcs
+    w = nwcs.makeWCS(shape, PIX_ARCMIN / 60.0, centreRADeg=30.0,
+                     centreDecDeg=decDeg)
+    thetas, nphi, _, _ = sht.car_ring_geometry(shape, w)
+    return thetas, nphi, sht.ring_weights(thetas, 1.0), w
+
+
+def legendre_lane_steps(lmax, mmax, R):
+    """Active (l, m) pairs times rings: the kernel's lane-steps."""
+    nm = min(lmax, mmax) + 1
+    return (nm * (lmax + 1) - nm * (nm - 1) // 2) * R
+
+
+def legendre_bound(direction, lmax, R, dtype):
+    """(bound ms, "bytes"/"operations") of one contraction: the alm
+    triangle and the (m, ring) array, one read and one written, and
+    LEGENDRE_OPS_PER_LANE_STEP a lane-step."""
+    import torch
+    size = 4 if dtype == torch.float32 else 8
+    ntri = legendre_lane_steps(lmax, lmax, 1)
+    nbytes = size * (2 * ntri + 2 * (lmax + 1) * R + 2 * R)
+    ops = LEGENDRE_OPS_PER_LANE_STEP[direction] \
+        * legendre_lane_steps(lmax, lmax, R)
+    return bound(nbytes, ops, "float32" if dtype == torch.float32
+                 else "float64")
+
+
+def time_once(fn):
+    """(result, ms) of one call, timed with CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def check_legendre(sht, card, lmax=SIM_LMAX, reps=3):
+    """Phase 14a: the Legendre kernel against its plain version on the
+    rings of one dec -62 .. -54.5 tile at lmax = mmax = ``lmax``, both
+    directions, float32 and float64, timed plain, kernel, kernel, plain;
+    two kernel calls bitwise equal.  Synthesis takes a lensed-CMB alm from
+    rand_alm, analysis the ring coefficients of a white map."""
+    import torch
+    from nemo_tpu_torch.ops import grf
+    thetas, nphi, wts, _ = legendre_rings_of_tile()
+    R = len(thetas)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    alm = sht.rand_alm(grf.lensedClTT()[:lmax + 1], lmax=lmax, generator=g)
+    G = torch.randn((2, lmax + 1, R), generator=g, dtype=torch.float64,
+                    device="cuda") * (2 * np.pi / nphi)
+    inputs = {"synthesis": (alm.real, alm.imag), "analysis": (G[0], G[1])}
+    res = {}
+    for direction in ("synthesis", "analysis"):
+        adj = direction == "analysis"
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            th = torch.as_tensor(thetas, dtype=dtype, device="cuda")
+            re, im = (x.to(dtype) for x in inputs[direction])
+            w = torch.as_tensor(wts, dtype=dtype, device="cuda")
+
+            def plain():
+                return sht._legendre_contract_plain(th, re, im, lmax, lmax,
+                                                    adj, w)
+
+            def kernel():
+                return sht.legendre_contract(thetas, re, im, lmax, lmax,
+                                             adjoint=adj, weights=wts,
+                                             dtype=dtype, device="cuda")
+
+            ref, p0 = time_once(plain)
+            a = kernel()
+            k0 = time_ms(kernel, reps)
+            k1 = time_ms(kernel, reps)
+            b = kernel()
+            _, p1 = time_once(plain)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(a, b))
+            if not bitwise:
+                raise RuntimeError("legendre %s %s: two kernel calls differ"
+                                   % (direction, name))
+            r = ref.double()
+            err = float(torch.max(torch.abs(a.double() - r)))
+            if dtype == torch.float64:
+                tol = 1e-10 * float(torch.max(torch.abs(r)))
+            elif adj:
+                tol = 1e-5 * float(torch.max(torch.abs(r)))
+            else:
+                tol = 1e-5 * float(torch.std(r))
+            if not (err <= tol and bool(torch.isfinite(a).all())):
+                raise RuntimeError("legendre %s %s: max error %.3e over the "
+                                   "tolerance %.3e" % (direction, name, err,
+                                                       tol))
+            bms, by = legendre_bound(direction, lmax, R, dtype)
+            ms = (k0 + k1) / 2
+            res[(direction, name)] = {
+                "ms": ms, "plain_ms": (p0 + p1) / 2, "bound_ms": bms,
+                "bound_by": by, "max_abs_err": err, "tol": tol,
+                "equal_to_plain": bool(torch.equal(a, ref))}
+            phase(14, "legendre %s %s, lmax %d, %d rings: kernel %.3f / "
+                  "%.3f ms, plain %.1f / %.1f ms (%.0fx), bound %.3f ms "
+                  "(%s, %.1f%%), max |err| %.3e (tolerance %.3e), equal "
+                  "to plain %s, two kernel calls bitwise equal (%s)"
+                  % (direction, name, lmax, R, k0, k1, p0, p1,
+                     (p0 + p1) / (k0 + k1), bms, by, 100 * bms / ms, err,
+                     tol, res[(direction, name)]["equal_to_plain"], card))
+            del ref, a, b, re, im
+            torch.cuda.empty_cache()
+    return res
+
+
+SIM_LABELS = (PHOT, "Arnaud_M4e14_z0p2")   # the quickstart's two scales
+SIM_METHODS = ("dataMap", "model", "max(dataMap,CMB)")
+SIM_CHECK_TILE = "T00"       # dec -62 .. -54.5: a curved tile
+NUM_SKY_SIMS = 2
+MODEL_CLUSTERS = 50
+
+
+def reset_sim_counts():
+    from nemo_tpu_torch.ops import sht
+    sht.legendre_contract.launches = 0
+    sht.legendre_contract.direction_launches.update(synthesis=0, analysis=0)
+    sht._legendre_contract_plain.calls = 0
+
+
+def read_sim_counts():
+    from nemo_tpu_torch.ops import sht
+    d = sht.legendre_contract.direction_launches
+    return {"synthesis": d["synthesis"], "analysis": d["analysis"],
+            "plain": sht._legendre_contract_plain.calls}
+
+
+def sim_recorder(log):
+    """Wrappers that time each sim (card synchronised before and after):
+    the flat CMB draws, the curved CMB draws and the curved 1/f noise."""
+    import torch
+    from nemo_tpu_torch.ops import grf, sht
+
+    def timed(kind):
+        def wrap(orig):
+            def run(*a, **kw):
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*a, **kw)
+                if out.is_cuda:
+                    torch.cuda.synchronize()
+                log.append((kind, time.perf_counter() - t0))
+                return out
+            return run
+        return wrap
+    return ((grf, "sim_cmb_map", timed("flat")),
+            (sht, "sim_cmb_map_curved", timed("curved")),
+            (sht, "sim_noise_map_curved", timed("curved_noise")))
+
+
+def sim_summary(log):
+    out = {}
+    for kind, secs in log:
+        n, t = out.get(kind, (0, 0.0))
+        out[kind] = (n + 1, t + secs)
+    return {k: {"n": n, "s": round(t, 3)} for k, (n, t) in out.items()}
+
+
+def stack_recorder(stacks, tile):
+    """Wrapper keeping a host copy of every noise stack built for
+    ``tile``, by filter label."""
+    from nemo_tpu_torch import filters
+
+    def wrap(orig):
+        def run(self, dataStack):
+            out = orig(self, dataStack)
+            if self.tileName == tile:
+                stacks[self.label] = out.detach().cpu().numpy()
+            return out
+        return run
+    return (filters.MatchedFilter, "_noiseStack", wrap)
+
+
+def given_stacks(stacks):
+    """Wrapper that builds every filter from its label's given stack."""
+    from nemo_tpu_torch import filters
+
+    def wrap(orig):
+        def run(self, dataStack):
+            self.givenNoiseStack = stacks[self.label]
+            return orig(self, dataStack)
+        return run
+    return (filters.MatchedFilter, "_noiseStack", wrap)
+
+
+def south_config(surveyDict, method, outName, **over):
+    """The dec -47 survey with the two-scale bank and ``method``, written
+    as JSON; returns (path, dict)."""
+    d = with_filters(surveyDict, SIM_LABELS, **over)
+    d = copy.deepcopy(d)
+    d["allFilters"]["params"]["noiseParams"]["method"] = method
+    d["allFilters"]["params"]["saveFilter"] = True
+    d["outputDir"] = os.path.join(WORK, outName)
+    path = os.path.join(WORK, outName + ".yml")
+    with open(path, "w") as f:
+        json.dump(d, f, indent=1)
+    return path, d
+
+
+def read_optimal(outDir):
+    from nemo_tpu_torch.utils.tables import Table
+    return Table.read(os.path.join(outDir, "%s_optimalCatalog.fits"
+                                   % os.path.basename(outDir)))
+
+
+def in_tile(truth, d, tile):
+    """The truth rows inside ``tile``'s RADecSection."""
+    sec = next(t["RADecSection"] for t in d["tileDefinitions"]
+               if t["tileName"] == tile)
+    ra, dec = np.asarray(truth["RADeg"]), np.asarray(truth["decDeg"])
+    sel = (ra >= min(sec[:2])) & (ra < max(sec[:2])) \
+        & (dec >= min(sec[2:])) & (dec < max(sec[2:]))
+    return {k: np.asarray(v)[sel] for k, v in truth.items()}
+
+
+def sims_search_phase(noise, detect, card, device="cuda"):
+    """Phase 14b: the nemo CLI on the batched engine over the dec -47
+    survey with each noise method; the model run's Legendre launches and
+    draws; one curved tile's card catalog against the CPU float64 filter
+    built from the card's downloaded model stacks.  Returns (survey dict,
+    truth, the dataMap run's config path, the model run's counts)."""
+    import torch
+    from nemo_tpu_torch import maps
+    from nemo_tpu_torch.cli import nemo_main
+    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    onCard = device == "cuda"
+    t0 = time.perf_counter()
+    surveyDict, truth = survey_inputs(os.path.join(WORK, "survey_south"),
+                                      device=device, decDeg=SIM_DEC,
+                                      ivar=True)
+    nTiles = len(surveyDict["tileDefinitions"])
+    phase(14, "dec %.0f survey: %d tiles of %d x %d, %d clusters, in %.1f s"
+          % (SIM_DEC, nTiles, SHAPE[0], SHAPE[1], len(truth["y_c"]),
+             time.perf_counter() - t0))
+    runs = {}
+    for method in SIM_METHODS:
+        tag = method.split("(")[0]
+        cfgPath, d = south_config(surveyDict, method, "south_" + tag)
+        log, stacks = [], {}
+        targets = sim_recorder(log)
+        if method == "model":
+            targets += (stack_recorder(stacks, SIM_CHECK_TILE),)
+        GLOBAL_TIMER.__init__()
+        reset_counts(noise, detect)
+        reset_sim_counts()
+        t0 = time.perf_counter()
+        with patched(*targets):
+            nemo_main.main([cfgPath, "--device", device])
+        if onCard:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(read_counts(noise, detect), **read_sim_counts())
+        sims = sim_summary(log)
+        cat = read_optimal(d["outputDir"])
+        found = int(np.sum(match(truth, cat, 1.0) >= 0))
+        phase(14, "nemo --device %s, %s noise, %d tiles x %d scales: %.2f s"
+              "; stages (s) %s; sims %s; launches and plain calls %s; %d "
+              "objects, %d/%d clusters within 1' (%s)"
+              % (device, method, nTiles, len(SIM_LABELS), secs,
+                 json.dumps({k: round(v, 3) for k, v in
+                             sorted(GLOBAL_TIMER.stages.items())}),
+                 json.dumps(sims), json.dumps(counts), len(cat), found,
+                 len(truth["y_c"]), card))
+        if found < len(truth["y_c"]) // 2:
+            raise RuntimeError("%s run: %d clusters recovered"
+                               % (method, found))
+        nSims = sum(v["n"] for v in sims.values())
+        if method == "model":
+            nCurved = sims.get("curved", {}).get("n", 0)
+            nFlat = sims.get("flat", {}).get("n", 0)
+            want = 2 * len(SIM_LABELS)
+            if nCurved != 12 * want or nFlat != 4 * want:
+                raise RuntimeError("model run: %d curved and %d flat draws"
+                                   % (nCurved, nFlat))
+            if counts["synthesis" if onCard else "plain"] != nCurved \
+                    or counts["analysis"] != 0 \
+                    or counts["plain" if onCard else "synthesis"] != 0:
+                raise RuntimeError("model run: Legendre counts %s" % counts)
+        elif nSims or counts["synthesis"] or counts["plain"]:
+            raise RuntimeError("%s run drew %d sims" % (method, nSims))
+        if onCard and (counts["rms_cells"] <= 0 or counts["rms_plain"]
+                       or counts["labels"] <= 0 or counts["labels_plain"]):
+            raise RuntimeError("%s run: counts %s" % (method, counts))
+        runs[method] = {"secs": secs, "counts": counts, "sims": sims,
+                        "catalog": cat, "config": cfgPath, "stacks": stacks}
+
+    # the curved tile's filters rebuilt on the CPU in float64 from the
+    # card's model stacks; its catalog against the card's by phase 6's rule
+    model = runs["model"]
+    if sorted(model["stacks"]) != sorted(SIM_LABELS):
+        raise RuntimeError("no model stacks kept for %s" % SIM_CHECK_TILE)
+    d = with_filters(surveyDict, SIM_LABELS, useDeviceBatching=False)
+    d["tileDefinitions"] = [t for t in d["tileDefinitions"]
+                            if t["tileName"] == SIM_CHECK_TILE]
+    cfgPath, d = south_config(d, "model", "south_model_cpu_" + SIM_CHECK_TILE)
+    t0 = time.perf_counter()
+    with patched(given_stacks(model["stacks"])):
+        nemo_main.main([cfgPath, "--device", "cpu"])
+    cpuSecs = time.perf_counter() - t0
+    cpuCat = read_optimal(d["outputDir"])
+    gpuCat = model["catalog"]
+    gpuCat = gpuCat[np.asarray(gpuCat["tileName"]) == SIM_CHECK_TILE]
+    tileTruth = in_tile(truth, d, SIM_CHECK_TILE)
+    nCompared, maxSep, maxDy = compare_runs(tileTruth, gpuCat, cpuCat)
+    if nCompared < 5:
+        raise RuntimeError("curved tile: %d clusters compared" % nCompared)
+    phase(14, "tile %s (curved), the card's model stacks given to the CPU "
+          "float64 per-tile filter: %.2f s, %d objects against %d on the "
+          "card; %d clusters at fixed_SNR >= 5 in both, max offset %.4f', "
+          "max |fixed_y_c ratio - 1| %.2e (%s)"
+          % (SIM_CHECK_TILE, cpuSecs, len(cpuCat), len(gpuCat), nCompared,
+             maxSep, maxDy, card))
+    return surveyDict, truth, runs
+
+
+def contamination_phase(noise, detect, card, runs, device="cuda"):
+    """Phase 14c: the sky-sim and inverted-map contamination estimates on
+    the dataMap run's filter caches."""
+    import torch
+    from nemo_tpu_torch import maps, startup
+    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    onCard = device == "cuda"
+    realCat = runs["dataMap"]["catalog"]
+    config = startup.NemoConfig(runs["dataMap"]["config"], device=device,
+                                writeTileInfo=True)
+    log, perSim = [], []
+
+    def each_sim(orig):
+        def run(cfg, *a, **kw):
+            n0 = len(log)
+            if onCard:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cat = orig(cfg, *a, **kw)
+            if onCard:
+                torch.cuda.synchronize()
+            perSim.append((time.perf_counter() - t0, sim_summary(log[n0:]),
+                           int(np.sum(np.asarray(cat["SNR"]) >= 5))
+                           if len(cat) else 0, len(cat)))
+            return cat
+        return run
+    from nemo_tpu_torch import pipelines
+    GLOBAL_TIMER.__init__()
+    reset_counts(noise, detect)
+    reset_sim_counts()
+    t0 = time.perf_counter()
+    with patched(*sim_recorder(log),
+                 (pipelines, "filterMapsAndMakeCatalogs", each_sim)):
+        sims = maps.estimateContaminationFromSkySim(config,
+                                                    numSkySims=NUM_SKY_SIMS)
+    secs = time.perf_counter() - t0
+    counts = dict(read_counts(noise, detect), **read_sim_counts())
+    nTiles = len(config.tileNames)
+    for i, (s, kinds, n5, n) in enumerate(perSim):
+        phase(14, "sky sim %d: %.2f s, sims %s, %d detections, %d at S/N "
+              ">= 5 (%s)" % (i + 1, s, json.dumps(kinds), n, n5, card))
+        want = {"curved": 12 * 2, "flat": 4 * 2}
+        if {k: kinds.get(k, {}).get("n", 0) for k in want} != want \
+                or len(kinds) != 2:
+            raise RuntimeError("sky sim %d drew %s" % (i + 1, kinds))
+    if onCard and (counts["synthesis"] != NUM_SKY_SIMS * 24
+                   or counts["plain"] or counts["rms_cells"] <= 0
+                   or counts["rms_plain"]):
+        raise RuntimeError("sky sims: counts %s" % counts)
+    t0 = time.perf_counter()
+    inverted = maps.estimateContaminationFromInvertedMaps(config)
+    invSecs = time.perf_counter() - t0
+    tabs = {}
+    for label, cats in (("skySim", sims), ("invertedMap", [inverted])):
+        for j, cat in enumerate(cats):
+            tabs.update(maps.estimateContamination(
+                cat, realCat, ["SNR"], "%s%d" % (label, j),
+                diagnosticsDir=config.diagnosticsDir))
+    rates = {k: round(float(np.asarray(t["contaminationRate"])[2]), 4)
+             for k, t in sorted(tabs.items())}
+    phase(14, "contamination: %d sky sims of %d tiles in %.2f s, launches "
+          "and plain calls %s; inverted maps %.2f s, %d detections; "
+          "contamination rate at S/N > 5 %s (%s)"
+          % (NUM_SKY_SIMS, nTiles, secs, json.dumps(counts), invSecs,
+             len(inverted), json.dumps(rates), card))
+    return counts
+
+
+def model_catalog(w, shape, path, seed=SEED + 31):
+    """MODEL_CLUSTERS Arnaud clusters at seeded positions inside the tile,
+    written as FITS."""
+    from nemo_tpu_torch.utils.tables import Table
+    rng = np.random.default_rng(seed)
+    ys = rng.uniform(60, shape[0] - 60, MODEL_CLUSTERS)
+    xs = rng.uniform(60, shape[1] - 60, MODEL_CLUSTERS)
+    coords = w.pix2wcs(xs, ys)
+    Table({"name": np.array(["c%02d" % i for i in range(MODEL_CLUSTERS)]),
+           "RADeg": coords[:, 0], "decDeg": coords[:, 1],
+           "y_c": rng.uniform(2.0, 6.0, MODEL_CLUSTERS),
+           "template": np.array([PHOT] * MODEL_CLUSTERS)}).write(path)
+
+
+def nemo_model_phase(card, device="cuda"):
+    """Phase 14d: nemoModel on one dec -55 tile with a curved CMB at the
+    default band limit and curved 1/f noise; seconds by step, Legendre
+    launches, and the statistics of the CMB, its draw and the noise."""
+    import torch
+    from nemo_tpu_torch import maps
+    from nemo_tpu_torch.cli import nemoModel_main
+    from nemo_tpu_torch.models import beams
+    from nemo_tpu_torch.ops import grf, sht
+    from nemo_tpu_torch.utils import fits as nfits
+    from nemo_tpu_torch.utils import wcs as nwcs
+
+    onCard = device == "cuda"
+    work = os.path.join(WORK, "nemoModel")
+    os.makedirs(work, exist_ok=True)
+    w = nwcs.makeWCS(SHAPE, PIX_ARCMIN / 60.0, centreRADeg=30.0,
+                     centreDecDeg=-55.0)
+    template = os.path.join(work, "template.fits")
+    nfits.write_image(template, np.ones(SHAPE), w.header)
+    beamFile = os.path.join(work, "beam_f150.txt")
+    beams.makeGaussianBeamFile(beamFile, BANDS[0][2])
+    catPath = os.path.join(work, "clusters.fits")
+    model_catalog(w, SHAPE, catPath)
+    out = os.path.join(work, "mock_f150.fits")
+    noiseUK, lKnee = 20.0, 2000.0
+    steps = []
+
+    def timed(name):
+        def wrap(orig):
+            def run(*a, **kw):
+                if onCard:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = orig(*a, **kw)
+                if onCard:
+                    torch.cuda.synchronize()
+                steps.append((name, time.perf_counter() - t0))
+                return r
+            return run
+        return wrap
+    reset_sim_counts()
+    t0 = time.perf_counter()
+    with patched((maps, "makeModelImage", timed("model image")),
+                 (maps, "simCMBMap", timed("CMB")),
+                 (maps, "simNoiseMap", timed("1/f noise"))):
+        nemoModel_main.main([catPath, template, beamFile, out, "-f",
+                             str(BANDS[0][1]), "-C", "--curved-cmb", "-N",
+                             str(noiseUK), "--lknee", str(lKnee), "-S",
+                             "42", "--device", device])
+    secs = time.perf_counter() - t0
+    counts = read_sim_counts()
+    want = {"synthesis": 3, "analysis": 1, "plain": 0} if onCard else \
+        {"synthesis": 0, "analysis": 0, "plain": 4}
+    if counts != want:
+        raise RuntimeError("nemoModel: Legendre counts %s" % counts)
+
+    signal, _ = nfits.read_image(out.replace(".fits", "_signalOnly.fits"))
+    withCMB, _ = nfits.read_image(out.replace(".fits", "_signalAndCMB.fits"))
+    final, _ = nfits.read_image(out)
+    cmb = np.asarray(withCMB, float) - np.asarray(signal, float)
+    noiseMap = np.asarray(final, float) - np.asarray(withCMB, float)
+    if not (np.all(np.isfinite(final)) and final.shape == SHAPE):
+        raise RuntimeError("nemoModel output malformed")
+    beam = beams.BeamProfile(beamFileName=beamFile)
+    Cl = grf.lensedClTT()
+    ClB = Cl * np.interp(np.arange(len(Cl), dtype=float), beam.ell,
+                         beam.Bell)
+    ls = np.arange(len(Cl))
+    varRatio = cmb.var() / (np.sum((2 * ls + 1) * ClB) / (4 * np.pi))
+    # the draw: rand_alm on the card at the auto band limit, hat C_l in
+    # bands of 500 over l 500 .. 6,000
+    g = torch.Generator(device=device).manual_seed(SEED + 32)
+    alm = sht.rand_alm(ClB[:SIM_LMAX + 1], lmax=SIM_LMAX, generator=g,
+                       device=device)
+    power = torch.abs(alm) ** 2
+    power[:, 1:] *= 2
+    hatCl = (power.sum(dim=1) / (2 * torch.arange(
+        SIM_LMAX + 1, device=alm.device) + 1)).cpu().numpy()
+    del alm, power
+    bands = [(l0, l0 + 500) for l0 in range(500, SIM_LMAX, 500)]
+    clRatios = [float(hatCl[a:b].mean() / ClB[a:b].mean()) for a, b in bands]
+    # the 1/f noise keeps the white level above its band limit: the flat
+    # power at l 8,000 .. 18,000 against noiseUK^2 Omega_pix
+    pixRad = np.radians(PIX_ARCMIN / 60.0)
+    pix = maps.pixScalesRad(w, SHAPE)
+    P2 = np.abs(np.fft.rfft2(noiseMap)) ** 2 * pix[0] * pix[1] \
+        / noiseMap.size
+    from nemo_tpu_torch.ops import fourier
+    lmap = fourier.rmodlmap(SHAPE, pix)
+    sel = (lmap > 8000) & (lmap < 18000)
+    whiteRatio = float(P2[sel].mean() / (noiseUK ** 2 * pix[0] * pix[1]))
+    byStep = {}
+    for name, s in steps:
+        byStep[name] = round(byStep.get(name, 0.0) + s, 3)
+    phase(14, "nemoModel --device %s on a dec -55 tile of %d x %d, %d "
+          "clusters, -C --curved-cmb (lmax 12000) -N %g --lknee %g: %.2f s; "
+          "by step (s) %s; Legendre launches and plain calls %s; CMB "
+          "variance / sum (2l+1) C_l B_l / 4pi %.4f; rand_alm hat C_l / "
+          "C_l B_l in bands of 500 over l 500-6000: %s; 1/f noise power at "
+          "l 8000-18000 / white %.4f (pixel %.1f') (%s)"
+          % (device, SHAPE[0], SHAPE[1], MODEL_CLUSTERS, noiseUK, lKnee,
+             secs, json.dumps(byStep), json.dumps(counts), varRatio,
+             [round(r, 4) for r in clRatios], whiteRatio,
+             np.degrees(pixRad) * 60, card))
+    if not 0.5 < varRatio < 2.0:
+        raise RuntimeError("CMB variance ratio %.3f" % varRatio)
+    if max(abs(r - 1) for r in clRatios) > 0.05:
+        raise RuntimeError("rand_alm band powers %s" % clRatios)
+    if not 0.9 < whiteRatio < 1.1:
+        raise RuntimeError("1/f noise white level %.3f" % whiteRatio)
+    return counts
+
+
+def legendre_row(leg, direction, launches, extra):
+    """The kernels line's record of one Legendre direction: float32 (the
+    card's default) with the float64 run beside it."""
+    r32, r64 = leg[(direction, "float32")], leg[(direction, "float64")]
+    if launches <= 0:
+        raise RuntimeError("legendre %s: no launch on its main path"
+                           % direction)
+    return dict({
+        "name": "legendre_" + direction, "route": "cuda",
+        "source": "nemo_tpu_torch/csrc/legendre_contract.cu",
+        "replaces": "nemo_tpu/ops/sht.py:70 (XLA lax.scan, not a TPU "
+                    "kernel)",
+        "launches": launches, "max_abs_err": r32["max_abs_err"],
+        "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+        "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
+        "library_ms": None, "share_of_bound": r32["bound_ms"] / r32["ms"],
+        "shape": "lmax = mmax = %d, 896 rings, float32" % SIM_LMAX,
+        "equal_to_plain": r32["equal_to_plain"],
+        "ms_float64": r64["ms"], "plain_ms_float64": r64["plain_ms"],
+        "bound_ms_float64": r64["bound_ms"],
+        "max_abs_err_float64": r64["max_abs_err"],
+        "equal_to_plain_float64": r64["equal_to_plain"]}, **extra)
+
+
 def main():
     try:
         import torch
@@ -1754,7 +2347,7 @@ def main():
     try:
         from nemo_tpu_torch import cuda_build
         from nemo_tpu_torch.models import boltzmann, cosmology
-        from nemo_tpu_torch.ops import detect, noise
+        from nemo_tpu_torch.ops import detect, noise, sht
     except ImportError as exc:
         sys.exit("chip_smoke: the port is not importable from %s (%s)"
                  % (ROOT, exc))
@@ -1767,11 +2360,12 @@ def main():
 
     t0 = time.perf_counter()
     sources = ("rms_cells.cu", "label_components.cu", "boltzmann_rk4.cu",
-               boltzmann.IEEE_DIV_BUILD)
+               boltzmann.IEEE_DIV_BUILD, sht.SOURCE)
     cuda_build.build(sources)
     noise.load_kernel()
     detect.load_label_kernel()
     boltzmann.load_kernel()
+    sht.load_kernel()
     phase(2, "build: %s for sm_90a, in parallel, in %.2f s (nvcc %s)"
           % (", ".join(sources), time.perf_counter() - t0,
              ", ".join("%.2f s" % cuda_build.BUILD_SECONDS.get(k, 0.0)
@@ -1779,6 +2373,12 @@ def main():
     phase(2, "ptxas, boltzmann_rk4: %s" % ptxas_report(
         cuda_build.BUILD_LOGS.get("boltzmann_rk4.cu", ""),
         "boltzmann_rk4_kernel"))
+    for tag, entry in (("synthesis float32", "legendre_kernelIfLb0"),
+                       ("synthesis float64", "legendre_kernelIdLb0"),
+                       ("analysis float32", "legendre_kernelIfLb1"),
+                       ("analysis float64", "legendre_kernelIdLb1")):
+        phase(2, "ptxas, legendre_contract %s: %s" % (tag, ptxas_report(
+            cuda_build.BUILD_LOGS.get(sht.SOURCE, ""), entry)))
 
     rms = check_rms(noise, card)
     labelErr, labelMs, labelBound, labelBy = check_labels(detect, card)
@@ -1824,6 +2424,11 @@ def main():
     qfit_routes_phase(card, dr5Dict, dr5Out)
     masses_phase(card, cfgPath, dr5Dict, dr5Out, surveyTruth)
     injCounts = injection_phase(noise, detect, card, surveyDict)
+
+    leg = check_legendre(sht, card)
+    _, _, simRuns = sims_search_phase(noise, detect, card)
+    contamCounts = contamination_phase(noise, detect, card, simRuns)
+    modelCounts = nemo_model_phase(card)
 
     errs, flips, ms, bms, by = rms[("step", "float32")]
     ms1 = rms[("nT1", "float32")][2]
@@ -1883,7 +2488,15 @@ def main():
         "plain_ms_nGrid4096": boltz["plain_ms4096"],
         "bound_ms_nGrid4096": boltz["bound_ms4096"],
         "max_rel_err_nGrid4096": boltz["max_rel_err"],
-        "operations": boltz["ops24576"]}]}))
+        "operations": boltz["ops24576"]}] + [legendre_row(
+            leg, direction, launches, extra)
+            for direction, launches, extra in (
+                ("synthesis", simRuns["model"]["counts"]["synthesis"],
+                 {"launches_sky_sims": contamCounts["synthesis"],
+                  "launches_nemoModel": modelCounts["synthesis"]}),
+                ("analysis", modelCounts["analysis"],
+                 {"launches_model_noise_run":
+                  simRuns["model"]["counts"]["analysis"]}))]}))
     print("total %.1f s" % (time.perf_counter() - tStart))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,10 +17,14 @@ the post-filter chain whose grid RMS runs through the CUDA kernel
 ``filter_*.fits`` cache as the JAX package, so a filter built by either
 package is applied by the other.
 
+The noise covariance comes from the data (``dataMap``), from a simulated
+CMB plus white noise drawn per band (``model``, through ``ops/grf.py`` or,
+above ``maps.CURVED_SKY_DEC_DEG``, ``ops/sht.py`` and its Legendre kernel),
+or from the data floored by the lensed CMB power (``max(dataMap,CMB)``).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the real-space matched filter, the 'model' and 'max(dataMap,CMB)' noise
-methods, and filters applied to a map of another shape
-(``reshapeFilter``).
+the real-space matched filter and filters applied to a map of another
+shape (``reshapeFilter``).
 """
 
 import os
@@ -31,13 +35,12 @@ import torch
 from . import device as device_mod
 from .models import profiles, sz
 from .models.beams import BeamProfile
-from .ops import fourier, imageops, interp
+from .ops import fourier, grf, imageops, interp, sht
 from .ops import noise as noise_ops
 from .ops import solve as solve_ops
 from .utils import fits as nfits
 from .utils.timing import GLOBAL_TIMER
 
-_SIMS_TODO = "not ported yet (ROADMAP.md queue 1, item 10c: flat-sky sims)"
 _REST_TODO = "not ported yet (ROADMAP.md queue 1, item 11: the rest)"
 
 
@@ -75,7 +78,13 @@ def filterMaps(unfilteredMapsDictList, filterParams, tileName,
 # ----------------------------------------------------------------------------
 class MapFilter:
     """Base class: holds the preprocessed per-frequency tile maps plus the
-    geometry and beam metadata needed to build filters."""
+    geometry and beam metadata needed to build filters.
+
+    ``givenNoiseStack``: an (nf, ny, nx) array or tensor that, when set,
+    is the noise stack the filter is built from, in place of the one its
+    noise method makes (to rebuild a filter from another run's stack)."""
+
+    givenNoiseStack = None
 
     def __init__(self, label, unfilteredMapsDictList, paramsDict,
                  tileName="PRIMARY", diagnosticsDir=None, selFnDir=None,
@@ -404,11 +413,13 @@ def _freq_weights(unfilteredMapsDictList, params):
     return np.array(w, dtype=float)
 
 
-def _build_filter_core(noiseStack, fSignalsAbs, w, apodM, padShape=None):
+def _build_filter_core(noiseStack, fSignalsAbs, w, apodM, padShape=None,
+                       fg=None):
     """noiseStack: (nf, ny, nx) real maps used for the noise model.
     fSignalsAbs: (nf, pny, pnx//2+1) |FFT| of unit-normalised signal
-    templates on the padded grid; w: (nf,) weights.  Returns filt
-    (nf, pny, pnx//2+1)."""
+    templates on the padded grid; w: (nf,) weights; ``fg``: a floor on
+    every band pair's covariance on the half grid (max(dataMap,CMB)), or
+    None.  Returns filt (nf, pny, pnx//2+1)."""
     nf = noiseStack.shape[0]
     m = noiseStack * apodM[None]
     if padShape is not None:
@@ -417,6 +428,8 @@ def _build_filter_core(noiseStack, fSignalsAbs, w, apodM, padShape=None):
     # N_ij = smooth3(Re(F_i conj F_j)), smoothed as the reference smooths
     # the FULL grid (Hermitian extension of the half grid)
     prods = torch.real(fNoise[:, None] * torch.conj(fNoise[None, :]))
+    if fg is not None:
+        prods = torch.maximum(prods, fg[None, None])
     prods = imageops.gaussian_filter_rfft_fullgrid(
         prods.reshape((-1,) + prods.shape[-2:]), (3, 3), m.shape[-1])
     N = prods.reshape((nf, nf) + prods.shape[-2:])
@@ -632,14 +645,22 @@ class MatchedFilter(MapFilter):
 
     # ------------------------------------------------------------------
     def _noiseStack(self, dataStack):
-        """Maps whose power defines the noise covariance ('dataMap'): the
-        data, less the model images of any ``noiseModelCatalog``."""
+        """Maps whose power defines the noise covariance: the data, less the
+        model images of any ``noiseModelCatalog`` ('dataMap',
+        'max(dataMap,CMB)'), or a CMB + white-noise realisation per band
+        ('model'); ``givenNoiseStack`` when set."""
+        if self.givenNoiseStack is not None:
+            given = self.givenNoiseStack
+            if isinstance(given, np.ndarray):
+                given = np.array(given)         # a writable copy for torch
+            return torch.as_tensor(given).to(device=self.policy.device,
+                                             dtype=self.policy.dtype)
         method = self.params["noiseParams"]["method"]
-        if method == "dataMap":
+        from . import maps as maps_mod
+        if method in ("dataMap", "max(dataMap,CMB)"):
             cats = self.params.get("noiseModelCatalog")
             if not cats:
                 return dataStack
-            from . import maps as maps_mod
             if not isinstance(cats, list):
                 cats = [cats]
             maps_ = []
@@ -655,10 +676,38 @@ class MatchedFilter(MapFilter):
                         d = d - model
                 maps_.append(d)
             return torch.stack(maps_)
-        if method in ("model", "max(dataMap,CMB)"):
-            raise NotImplementedError(
-                "noiseParams method '%s' needs the CMB sims, %s"
-                % (method, _SIMS_TODO))
+        if method == "model":
+            # CMB + white noise from the weights, one seeded draw per band;
+            # the declination policy (maps.resolveSimMethod) sends tiles
+            # above CURVED_SKY_DEC_DEG through the curved-sky SHT
+            P = self.policy
+            curved = maps_mod.resolveSimMethod(
+                self.wcs, self.shape, "auto",
+                context="model-noise covariance") == "curved"
+            maps_ = []
+            for i, mapDict in enumerate(self.unfilteredMapsDictList):
+                weights = np.asarray(mapDict["weights"])
+                valid = weights > 0
+                RMS = np.mean(1 / np.sqrt(weights[valid])) if valid.any() \
+                    else 10.0
+                RMS = max(RMS, 10.0)
+                beam = BeamProfile(beamFileName=mapDict["beamFileName"])
+                gen = maps_mod.simGenerator(P, 3141592654 + i)
+                if curved:
+                    cmb = sht.sim_cmb_map_curved(
+                        self.shape, self.wcs, beamBell=beam.Bell,
+                        beamEll=beam.ell, noiseLevel=RMS,
+                        lmax=maps_mod.CURVED_AUTO_LMAX, dtype=P.dtype,
+                        device=P.device, generator=gen)
+                else:
+                    cmb = grf.sim_cmb_map(
+                        self.shape, self.pixScalesRad, beamBell=beam.Bell,
+                        beamEll=beam.ell, noiseLevel=RMS,
+                        dx_rows=maps_mod.pixScaleXRadPerRow(self.wcs,
+                                                            self.shape),
+                        device=P.device, generator=gen)
+                maps_.append(cmb.to(P.dtype))
+            return torch.stack(maps_)
         raise ValueError("Unknown noiseParams method '%s'" % method)
 
     def _signalTemplates(self, amplitudes=None):
@@ -677,9 +726,22 @@ class MatchedFilter(MapFilter):
         # unit-normalised signal templates per band
         fSignalsAbs = torch.abs(fourier.rfft2(fourier.pad_to(
             self._signalTemplates(), self.padShape)))
+        fg = None
+        if self.params["noiseParams"]["method"] == "max(dataMap,CMB)":
+            fg = self.policy.tensor(self._foregroundsPower())
         self.filt = _build_filter_core(noiseStack, fSignalsAbs, w, apodM,
-                                       self.padShape)
+                                       self.padShape, fg=fg)
         self._calibrateSignalNorm()
+
+    def _foregroundsPower(self):
+        """CMB-like 2-d power in the same units as |rfft|^2 of a map, on
+        the padded half grid (host float64)."""
+        Cl = grf.lensedClTT()
+        lmap = fourier.rmodlmap(self.padShape, self.pixScalesRad)
+        Cl2d = np.interp(lmap, np.arange(len(Cl)), Cl, right=0.0)
+        ny, nx = self.padShape
+        omega_pix = self.pixScalesRad[0] * self.pixScalesRad[1]
+        return Cl2d * (ny * nx) / omega_pix
 
     def _calibrateSignalNorm(self):
         """Normalise with a known-amplitude template: the filtered peak of

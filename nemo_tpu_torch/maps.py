@@ -1,16 +1,19 @@
-"""Map and tile runtime: tile loading, preprocessing, model images, the
-source-injection test, tiling and stitching.
+"""Map and tile runtime: tile loading, preprocessing, simulated skies, model
+images, the source-injection test, tiling and stitching.
 
 Port of ``nemo_tpu/maps.py``: :class:`MapDict` (tile loading and the
-``preprocess`` chain), :class:`MapDictList`, :class:`TileDict`, the tiling
-helpers that :mod:`startup` needs, model images (:func:`makeModelImage`),
-beam convolution, source masking, the injection test and its analyses,
-and the stitched and quick-look maps of a tiled run.  Bookkeeping is host
-numpy; painting, beam convolution, the survey-mask apodisation and the
-pixel window run as torch ops on a :class:`~nemo_tpu_torch.device.Policy`'s
-device (a MapDict's ``policy``, the CPU unless a config gives its own).
-The CMB substitution of contamination sims (``CMBSimSeed``) raises
-NotImplementedError naming its ROADMAP item.
+``preprocess`` chain, with the source-free CMB substitution of sky-sim
+contamination runs, ``CMBSimSeed``), :class:`MapDictList`,
+:class:`TileDict`, the tiling helpers that :mod:`startup` needs, the
+simulated CMB and noise maps and their declination policy
+(:func:`simCMBMap`, :func:`simNoiseMap`, :func:`resolveSimMethod`), model
+images (:func:`makeModelImage`), beam convolution, source masking, the
+injection test and its analyses, the contamination estimates, and the
+stitched and quick-look maps of a tiled run.  Bookkeeping is host numpy;
+the sims (``ops/grf.py``, ``ops/sht.py``), painting, beam convolution, the
+survey-mask apodisation and the pixel window run as torch ops on a
+:class:`~nemo_tpu_torch.device.Policy`'s device (a MapDict's ``policy``, the
+CPU unless a config gives its own).
 """
 
 import os
@@ -24,12 +27,10 @@ from . import device as device_mod
 from .models import cosmology as cosmo_mod
 from .models import profiles, sz
 from .models.beams import BeamProfile
-from .ops import fourier, imageops
+from .ops import fourier, grf, imageops, sht
 from .utils import fits as nfits
 from .utils.tables import Table, vstack
 from .utils.wcs import WCS, calcAngSepDeg, clipUsingRADecCoords
-
-_SIMS_TODO = "not ported yet (ROADMAP.md queue 1, item 10c: flat-sky sims)"
 
 # Reference API-parity aliases: the unit conversions live in models/sz.py
 convertToY = sz.convertToY
@@ -64,6 +65,58 @@ def pixScaleXRadPerRow(wcs, shape=None):
     out1 = wcs.pix2wcs(np.full(ny, cx + 1.0), rows)
     ra1, dec1 = np.asarray(out1)[:, 0], np.asarray(out1)[:, 1]
     return np.radians(calcAngSepDeg(ra0, dec0, ra1, dec1))
+
+
+# Declination policy for simulated skies: the reference synthesises
+# CMB/1-f realisations through a curved-sky SHT everywhere; the flat path
+# is dec-aware-banded but its residual multipole distortion reaches the
+# damping tail above |dec| ~ 40 deg.  method="auto" therefore switches to
+# the curved SHT path (ops/sht.py) when any part of the map lies above
+# CURVED_SKY_DEC_DEG, and an explicit method="flat" on such a map warns.
+CURVED_SKY_DEC_DEG = 40.0
+# Band limit for auto-selected curved draws (Legendre cost ~ lmax^2 x
+# rings): beyond l ~ 6000 the lensed TT power is < 1e-3 of its peak.
+# Explicit method="curved" calls keep their own lmax semantics.
+CURVED_AUTO_LMAX = 6000
+SIM_METHOD_OVERRIDE = None      # set from the config key simCMBMethod
+
+_warnedFlatHighDec = set()
+
+
+def maxAbsDecDeg(wcs, shape):
+    """Largest |dec| spanned by the map (centre column end rows)."""
+    ny = shape[0]
+    cx = float(shape[1] // 2)
+    decs = [wcs.pix2wcs(cx, 0.0)[1], wcs.pix2wcs(cx, float(ny - 1))[1]]
+    return float(np.max(np.abs(decs)))
+
+
+def resolveSimMethod(wcs, shape, method="auto", context="sim"):
+    """Resolve a simulation ``method`` ("auto"/"flat"/"curved") against
+    the declination policy; warns (once per context) when flat-sky
+    synthesis is explicitly forced on a high-|dec| map."""
+    highDec = maxAbsDecDeg(wcs, shape) > CURVED_SKY_DEC_DEG
+    if method == "auto":
+        if SIM_METHOD_OVERRIDE in ("flat", "curved"):
+            method = SIM_METHOD_OVERRIDE
+        else:
+            return "curved" if highDec else "flat"
+    if method == "flat" and highDec and context not in _warnedFlatHighDec:
+        import warnings
+        warnings.warn(
+            "flat-sky %s on a map reaching |dec| = %.1f deg (> %.0f): "
+            "the flat multipole distortion is order-unity in the "
+            "damping tail there; the reference uses a curved-sky SHT "
+            "(pass method='curved' or config simCMBMethod: curved)"
+            % (context, maxAbsDecDeg(wcs, shape), CURVED_SKY_DEC_DEG))
+        _warnedFlatHighDec.add(context)
+    return method
+
+
+def simGenerator(policy, seed):
+    """A ``torch.Generator`` on ``policy``'s device seeded with ``seed``:
+    the sims' only source of randomness."""
+    return torch.Generator(device=policy.device).manual_seed(int(seed))
 
 
 # Decompressed-file cache for tile clipping of maps that cannot be
@@ -276,10 +329,35 @@ class MapDict(dict):
             if data.size == 0:
                 raise ValueError("RADecSection clip returned empty array")
 
+        # Source-free CMB substitution for contamination sims
         if "CMBSimSeed" in self:
-            raise NotImplementedError(
-                "preprocess option 'CMBSimSeed' (source-free CMB "
-                "substitution for contamination sims) is " + _SIMS_TODO)
+            P = self.policy
+            seed = int(self["CMBSimSeed"])
+            beam = BeamProfile(beamFileName=self["beamFileName"])
+            # declination policy: curved-sky SHT above CURVED_SKY_DEC_DEG,
+            # dec-aware banded GRF below
+            if resolveSimMethod(wcs, data.shape, "auto",
+                                context="CMBSimSeed") == "curved":
+                randMap = sht.sim_cmb_map_curved(
+                    data.shape, wcs, beamBell=beam.Bell, beamEll=beam.ell,
+                    lmax=CURVED_AUTO_LMAX, dtype=P.dtype, device=P.device,
+                    generator=simGenerator(P, seed))
+            else:
+                randMap = grf.sim_cmb_map(
+                    data.shape, pixScalesRad(wcs, data.shape),
+                    beamBell=beam.Bell, beamEll=beam.ell,
+                    dx_rows=pixScaleXRadPerRow(wcs, data.shape),
+                    device=P.device, generator=simGenerator(P, seed))
+            randMap = randMap.cpu().numpy()
+            randMap[weights == 0] = 0
+            mask = data != 0
+            whiteNoiseLevel = np.zeros(weights.shape)
+            whiteNoiseLevel[weights != 0] = 1 / np.sqrt(
+                weights[weights != 0])
+            noise = grf.sim_noise_map(
+                data.shape, whiteNoiseLevel, device=P.device,
+                generator=simGenerator(P, seed + 1)).cpu().numpy()
+            data = np.where(mask, randMap + noise, 0.0)
 
         # Injection of model objects (position-recovery / completeness sims)
         if "injectSources" in self:
@@ -629,6 +707,88 @@ def subtractBackground(data, wcs, RADeg="centre", decDeg="centre",
     """High-pass via difference of Gaussians."""
     return data - smoothMap(data, wcs, RADeg=RADeg, decDeg=decDeg,
                             smoothScaleDeg=smoothScaleDeg, policy=policy)
+
+
+# -----------------------------------------------------------------------------
+# Simulation
+
+def simCMBMap(shape, wcs, noiseLevel=None, beam=None, seed=None,
+              method="auto", lmax=None, policy=None):
+    """Simulated CMB map (host float64 array) on ``policy``'s device (the
+    card unless a CPU policy is given).
+
+    ``method="flat"`` draws a dec-aware flat-sky GRF; ``method="curved"``
+    synthesises the realisation through the spherical-harmonic transform on
+    the map's iso-latitude rings (``ops/sht.py``, its Legendre contraction
+    in the policy's dtype); ``method="auto"`` picks curved above
+    ``CURVED_SKY_DEC_DEG`` (band-limited at ``CURVED_AUTO_LMAX``), flat
+    below - see :func:`resolveSimMethod`."""
+    P = policy or device_mod.policy("cuda")
+    if seed is None:
+        seed = np.random.randint(0, 2 ** 31 - 1)
+    gen = simGenerator(P, seed)
+    beamEll = beamBell = None
+    if beam is not None:
+        if isinstance(beam, str):
+            beam = BeamProfile(beamFileName=beam)
+        beamEll, beamBell = beam.ell, beam.Bell
+    if method == "auto" and lmax is None:
+        lmax = CURVED_AUTO_LMAX \
+            if resolveSimMethod(wcs, shape, "auto") == "curved" else None
+    method = resolveSimMethod(wcs, shape, method, context="simCMBMap")
+    if method == "curved":
+        return sht.sim_cmb_map_curved(
+            shape, wcs, beamBell=beamBell, beamEll=beamEll,
+            noiseLevel=noiseLevel, lmax=lmax, dtype=P.dtype,
+            device=P.device, generator=gen).cpu().numpy()
+    if method != "flat":
+        raise ValueError("simCMBMap method must be 'flat' or 'curved'")
+    ClTT = None
+    if lmax is not None:
+        # honour the band limit on the flat path too: zero C_l above lmax
+        ClTT = grf.lensedClTT()
+        ClTT[int(lmax) + 1:] = 0.0
+    return grf.sim_cmb_map(shape, pixScalesRad(wcs, shape),
+                           beamBell=beamBell, beamEll=beamEll,
+                           noiseLevel=noiseLevel, ClTT=ClTT,
+                           dx_rows=pixScaleXRadPerRow(wcs, shape),
+                           device=P.device, generator=gen).cpu().numpy()
+
+
+def simNoiseMap(shape, noiseLevel, wcs=None, lKnee=None, alpha=-3,
+                noiseMode="perPixel", seed=None, method="auto", policy=None):
+    """White or 1/f noise map (host float64 array) on ``policy``'s device
+    (the card unless a CPU policy is given).
+
+    ``method="curved"`` (1/f only) shapes the atmosphere through the
+    curved-sky alm round trip; the flat path shapes the same N_l on the
+    tile's Fourier grid.  ``method="auto"`` picks curved for 1/f noise
+    above ``CURVED_SKY_DEC_DEG`` (white noise always draws flat)."""
+    P = policy or device_mod.policy("cuda")
+    if seed is None:
+        seed = np.random.randint(0, 2 ** 31 - 1)
+    gen = simGenerator(P, seed)
+    if noiseMode == "perSquareArcmin":
+        if lKnee is not None:
+            raise ValueError("1/f noise requires noiseMode='perPixel'")
+        arcmin2Map = getPixelAreaArcmin2Map(shape, wcs)
+        noiseLevel = noiseLevel / arcmin2Map
+    if method == "auto":
+        method = "flat" if (lKnee is None or wcs is None) \
+            else resolveSimMethod(wcs, shape, "auto")
+    elif wcs is not None:
+        method = resolveSimMethod(wcs, shape, method,
+                                  context="simNoiseMap")
+    if method == "curved":
+        if lKnee is None:
+            raise ValueError("method='curved' applies to 1/f noise only")
+        return sht.sim_noise_map_curved(
+            shape, wcs, noiseLevel, lKnee, alpha=alpha, dtype=P.dtype,
+            device=P.device, generator=gen).cpu().numpy()
+    pix = pixScalesRad(wcs, shape) if wcs is not None else None
+    return grf.sim_noise_map(shape, noiseLevel, pix_scales_rad=pix,
+                             lKnee=lKnee, alpha=alpha, device=P.device,
+                             generator=gen).cpu().numpy()
 
 
 def addWhiteNoise(mapData, noisePerPix, seed=None):
@@ -1226,3 +1386,108 @@ def noiseBiasAnalysis(sourceInjTable, plotFileName=None,
             pass
     return {"func": biasFunc, "params": params, "binCentres": centres,
             "medianRatio": med}
+
+
+# -----------------------------------------------------------------------------
+# Contamination estimates
+
+def estimateContaminationFromInvertedMaps(config, imageDict=None):
+    """Run the finder on sign-inverted maps to estimate the contamination
+    rate (``maps.py:1589-1619``)."""
+    from . import pipelines
+    invertedCatalog = pipelines.filterMapsAndMakeCatalogs(
+        config, useCachedFilters=True, invertMap=True, writeAreaMask=False,
+        writeFlagMask=False, verbose=False)
+    return invertedCatalog
+
+
+def estimateContaminationFromSkySim(config, imageDict=None, numSkySims=None,
+                                    seedBase=8000):
+    """Run the finder on source-free CMB+noise sims made on the fly
+    (``maps.py:1485-1586``).  Returns a list of catalogs, one per sim."""
+    from . import pipelines
+    if numSkySims is None:
+        numSkySims = config.parDict.get("numSkySims", 10)
+    catalogsList = []
+    for i in range(numSkySims):
+        config.restoreConfig()
+        for mapDict in config.unfilteredMapsDictList:
+            mapDict["CMBSimSeed"] = seedBase + i
+            mapDict["_preprocessedTile"] = None
+        simCatalog = pipelines.filterMapsAndMakeCatalogs(
+            config, useCachedFilters=True, writeAreaMask=False,
+            writeFlagMask=False, verbose=False)
+        catalogsList.append(simCatalog)
+    config.restoreConfig()
+    for mapDict in config.unfilteredMapsDictList:
+        mapDict.pop("CMBSimSeed", None)
+        mapDict["_preprocessedTile"] = None
+    return catalogsList
+
+
+def plotContamination(contamTabDict, diagnosticsDir):
+    """Contamination-rate plots + interpolated useful-fraction text files
+    (``maps.py:1622-1665``).  Consumes the tables produced by
+    :func:`estimateContamination` (keys ``<label>_<SNRKey>``)."""
+    for k, tab in contamTabDict.items():
+        SNRKey = "fixed_SNR" if "fixed" in k else "SNR"
+        if SNRKey not in tab.keys():
+            continue
+        cuts = np.asarray(tab[SNRKey], dtype=float)
+        contam = np.asarray(tab["contaminationRate"], dtype=float)
+        try:
+            from . import plotSettings
+            plotSettings.update_rcParams()
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            plt.figure(figsize=(9, 6.5))
+            plt.plot(cuts, contam, "k-")
+            plt.xlabel(SNRKey.replace("_", " "))
+            plt.ylabel("Contamination fraction > %s" % SNRKey)
+            plt.xlim(cuts.min(), cuts.max())
+            plt.ylim(-0.05, 0.6)
+            plt.savefig(os.path.join(diagnosticsDir,
+                                     "%s_contaminationEstimate.pdf" % k))
+            plt.close()
+        except Exception as exc:  # plotting must never kill a survey run
+            print("... WARNING: contamination plot failed: %s" % exc)
+        fineSNRs = np.linspace(cuts.min(), cuts.max(), 1000)
+        fineContam = np.interp(fineSNRs, cuts, contam)
+        outTxt = os.path.join(
+            diagnosticsDir, "%s_contaminationEstimate_usefulFractions.txt"
+            % k)
+        with open(outTxt, "w") as f:
+            for frac in (0.4, 0.3, 0.2, 0.1, 0.05, 0.01):
+                SNRf = fineSNRs[np.argmin(abs(fineContam - frac))]
+                line = ("... contamination fraction = %.2f for %s > %.3f"
+                        " ..." % (frac, SNRKey, SNRf))
+                print(line)
+                f.write(line + "\n")
+
+
+def estimateContamination(contamSimDict, imageDict, SNRKeys, label,
+                          diagnosticsDir=None):
+    """Contamination fraction vs S/N cut, comparing sim (source-free)
+    detections against the real catalog (``maps.py:1668-1731``)."""
+    simCatalog = contamSimDict
+    realCatalog = imageDict
+    out = {}
+    for SNRKey in SNRKeys:
+        cuts = np.linspace(4.0, 10.0, 13)
+        contamRate = np.zeros(len(cuts))
+        for i, cut in enumerate(cuts):
+            nSim = int(np.sum(np.asarray(simCatalog[SNRKey]) > cut)) \
+                if len(simCatalog) > 0 and SNRKey in simCatalog.keys() else 0
+            nReal = int(np.sum(np.asarray(realCatalog[SNRKey]) > cut)) \
+                if len(realCatalog) > 0 and SNRKey in realCatalog.keys() \
+                else 0
+            contamRate[i] = nSim / nReal if nReal > 0 else 0.0
+        tab = Table({SNRKey: cuts,
+                     "contaminationRate": contamRate})
+        out[label + "_" + SNRKey] = tab
+        if diagnosticsDir is not None:
+            tab.write(os.path.join(
+                diagnosticsDir, "contaminationEstimate_%s_%s.fits"
+                % (label, SNRKey)))
+    return out

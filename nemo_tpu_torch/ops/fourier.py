@@ -88,6 +88,16 @@ def rmodlmap(shape, pix_scales_rad):
     return np.sqrt(ly[:, None] ** 2 + lx[None, :] ** 2)
 
 
+def rmodlmap_graph(shape, pix_scales_rad, device=None,
+                   dtype=torch.float64):
+    """|l| on the rfft half grid as a tensor on ``device``, formed there
+    from the 1-d axes."""
+    ly, lx = rlaxes(shape, pix_scales_rad)
+    ly = torch.as_tensor(ly, dtype=dtype, device=device)
+    lx = torch.as_tensor(lx, dtype=dtype, device=device)
+    return torch.sqrt(ly[:, None] ** 2 + lx[None, :] ** 2)
+
+
 @functools.lru_cache(maxsize=512)
 def good_fft_size(n):
     """Smallest 5-smooth (2^a 3^b 5^c) integer >= n.

@@ -65,10 +65,9 @@ def eligibleForBatch(f, parDict):
     """A filter spec can go through the batched device path when it is a
     Fourier matched filter with the dataMap, model or max(dataMap,CMB)
     noise method and none of the host-only extras (plots, weight-binned
-    noise cells, noise-model catalogs, background subtraction).  Staging
-    raises for the two noise methods that are not ported yet, as the host
-    engine does.  Real-space filters stay on the host path (their batched
-    step is not ported yet)."""
+    noise cells, noise-model catalogs, background subtraction).  Real-space
+    filters stay on the host path (their batched step is not ported
+    yet)."""
     params = f["params"]
     noiseParams = params.get("noiseParams", {})
     if f["class"] not in _BATCHABLE_CLASSES:
@@ -343,9 +342,13 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
 
     dataStack = common["data"]
     method = params["noiseParams"]["method"]
-    # 'model' and 'max(dataMap,CMB)' raise here, as in the host engine
-    noiseStack = dataStack if method == "dataMap" \
-        else filterObj._noiseStack(dataStack)
+    # the data is the noise stack but for 'model', whose realisations are
+    # drawn once per (tile, filter) and uploaded per filter
+    noiseStack = filterObj._noiseStack(dataStack) if method == "model" \
+        else dataStack
+    # max(dataMap,CMB): the lensed CMB power floors the covariance
+    fgPower = filterObj._foregroundsPower() \
+        if method == "max(dataMap,CMB)" else None
 
     # stacked templates are cached so same-geometry tiles share one
     # tensor (the chunk upload deduplicates by identity)
@@ -411,7 +414,7 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
             common["coverEdt"] > erodePix)
         common["_keepApplied"] = True
     return filterObj, {"common": common, "data": dataStack,
-                       "noise": noiseStack, "fgPower": None,
+                       "noise": noiseStack, "fgPower": fgPower,
                        "cachedFilt": cachedFilt, "cachedNorm": cachedNorm,
                        "template": templates, "calib": calibStack, "w": w,
                        "apodM": common["apodM"],
@@ -895,7 +898,7 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
     common = [snapshot[labels[0]][n][1]["common"] for n in names]
     shapes = [c["shape"] for c in common]
     ctx = {"labels": labels, "names": names, "padShape": padShape,
-           "snapshot": snapshot, "nT": len(names), "put": _put,
+           "snapshot": snapshot, "nT": len(names),
            "putDedup": _putDedup,
            "dataDev": _put([c["data"] for c in common]),
            "apodDev": _putDedup([c["apodM"] for c in common]),
@@ -973,10 +976,6 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
               "downBytes": 0, "consume": 0.0, "detectLabels": 0,
               "detectTiles": 0, "overflowTiles": 0, "givenLabels": 0}
     halfShape = (padShape[0], padShape[1] // 2 + 1)
-    # -inf, not 0: the step's max(prods, fg) must be a no-op for the
-    # dataMap method (about half the cross-band covariance is negative)
-    fgNone = torch.full((len(names),) + halfShape, float("-inf"),
-                        dtype=P.dtype, device=dev)
 
     photLabel = config.parDict.get("photFilter")
     photRes = None          # resident phot maps for the fixed_ reads
@@ -1005,13 +1004,21 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
         else:
             noiseDev = dataDev if all(sk["noise"] is sk["data"]
                                       for sk in stacksList) \
-                else ctx["put"]([sk["noise"] for sk in stacksList])
+                else ctx["putDedup"]([sk["noise"] for sk in stacksList])
+            # -inf, not 0: the step's max(prods, fg) must be a no-op but
+            # for max(dataMap,CMB) (about half the cross-band covariance
+            # is negative)
+            fgDev = torch.full((len(names),) + halfShape, float("-inf"),
+                               dtype=P.dtype, device=dev)
+            for i, sk in enumerate(stacksList):
+                if sk["fgPower"] is not None:
+                    fgDev[i] = P.tensor(sk["fgPower"])
             out = step(dataDev, noiseDev,
                        ctx["putDedup"]([sk["template"]
                                         for sk in stacksList]),
                        ctx["putDedup"]([sk["calib"] for sk in stacksList]),
                        P.tensor(stacksList[0]["w"]), ctx["apodDev"],
-                       ctx["psDev"], ctx["surveyDev"], fgNone,
+                       ctx["psDev"], ctx["surveyDev"], fgDev,
                        ctx["peakDev"], ctx["meta"])
         _sync(dev)
         tPhase["step"] += time.time() - t0

@@ -120,13 +120,17 @@ def parseConfigDict(parDict):
         if key not in parDict:
             parDict[key] = val
 
-    # Simulated-sky geometry policy ("auto", "flat" or "curved"): only
-    # validated here, as the port has no simulated skies yet.
+    # Simulated-sky geometry policy: "auto" (default; curved-sky SHT
+    # above maps.CURVED_SKY_DEC_DEG, dec-aware flat GRF below), or an
+    # explicit "flat"/"curved" override applied to every auto call.
     simMethod = parDict.get("simCMBMethod")
     if simMethod is not None:
         if simMethod not in ("flat", "curved", "auto"):
             raise ValueError("simCMBMethod must be 'flat', 'curved' or "
                              "'auto'")
+        from . import maps as maps_mod
+        maps_mod.SIM_METHOD_OVERRIDE = None if simMethod == "auto" \
+            else simMethod
 
     if "selFnOptions" in parDict:
         parDict["selFnOptions"].setdefault("method", "fast")

@@ -453,3 +453,76 @@ def test_given_step_on_card_matches_cpu(cuda_card):
                                    atol=1e-9 * np.abs(r).max())
     np.testing.assert_array_equal(got["surveyMask"].cpu().numpy(),
                                   ref["surveyMask"].numpy())
+
+
+def legendre_inputs(seed=9, lmax=300, nrings=200, decLo=-62.0, decHi=-54.5):
+    """Ring colatitudes of a dec -62..-54.5 tile, random alm (lmax+1)^2
+    falling as 1/l, and random ring coefficients (lmax+1, nrings)."""
+    rng = np.random.default_rng(seed)
+    thetas = np.radians(90.0 - np.linspace(decLo, decHi, nrings))
+    amp = 1.0 / np.maximum(np.arange(lmax + 1), 1.0)
+    tri = np.tril(np.ones((lmax + 1, lmax + 1), dtype=bool))
+    are = np.where(tri, rng.normal(size=tri.shape) * amp[:, None], 0.0)
+    aim = np.where(tri, rng.normal(size=tri.shape) * amp[:, None], 0.0)
+    Gre = rng.normal(size=(lmax + 1, nrings))
+    Gim = rng.normal(size=(lmax + 1, nrings))
+    w = np.sin(thetas) * 1e-3
+    return thetas, are, aim, Gre, Gim, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_legendre_kernel_matches_plain(cuda_card, adjoint, dtype):
+    """csrc/legendre_contract.cu against its plain version on the card, in
+    both directions: float64 within 1e-10 of max |plain|; float32 within
+    1e-5 of the plain result's std (synthesis) or max |alm| (analysis);
+    two launches bitwise equal; mmax < lmax and > 1,024 rings (analysis in
+    two launches) covered."""
+    from nemo_tpu_torch.ops import sht
+    for lmax, mmax, nrings in ((300, 300, 200), (200, 150, 1100)):
+        thetas, are, aim, Gre, Gim, w = legendre_inputs(lmax=lmax,
+                                                        nrings=nrings)
+        if adjoint:
+            args = (Gre[:mmax + 1], Gim[:mmax + 1])
+        else:
+            args = (are[:, :mmax + 1], aim[:, :mmax + 1])
+        launches = sht.legendre_contract.launches
+        plain = sht._legendre_contract_plain.calls
+        a = sht.legendre_contract(thetas, *args, lmax, mmax, adjoint=adjoint,
+                                  weights=w, dtype=dtype, device=cuda_card)
+        b = sht.legendre_contract(thetas, *args, lmax, mmax, adjoint=adjoint,
+                                  weights=w, dtype=dtype, device=cuda_card)
+        torch.cuda.synchronize()
+        assert sht._legendre_contract_plain.calls == plain
+        nl = 2 * (1 + (adjoint and nrings > 1024))
+        assert sht.legendre_contract.launches == launches + nl
+        assert torch.equal(a, b)
+        th = torch.as_tensor(thetas, dtype=dtype, device=cuda_card)
+        ref = sht._legendre_contract_plain(
+            th, *(torch.as_tensor(x, device=cuda_card).to(dtype)
+                  for x in args), lmax, mmax, adjoint,
+            torch.as_tensor(w, device=cuda_card).to(dtype))
+        assert a.shape == ref.shape and a.dtype == dtype
+        r = ref.double().cpu().numpy()
+        g = a.double().cpu().numpy()
+        if dtype == torch.float64:
+            tol = 1e-10 * np.abs(r).max()
+        else:
+            tol = 1e-5 * (np.abs(r).max() if adjoint else r.std())
+        assert np.abs(g - r).max() <= tol, (lmax, np.abs(g - r).max(), tol)
+
+
+@pytest.mark.cuda
+def test_legendre_kernel_raises_on_cpu_tensors(cuda_card):
+    """The kernel path takes CUDA tensors only; the wrapper sends a CPU
+    device to the plain version, never to the kernel."""
+    from nemo_tpu_torch.ops import sht
+    thetas, are, aim, _, _, _ = legendre_inputs(lmax=20, nrings=8)
+    th = torch.as_tensor(thetas, dtype=torch.float32)
+    with pytest.raises((ValueError, RuntimeError)):
+        sht._legendre_contract_cuda(th, torch.as_tensor(are).float(),
+                                    torch.as_tensor(aim).float(), 20, 20)
+    launches = sht.legendre_contract.launches
+    sht.legendre_contract(thetas, are, aim, 20, 20, device="cpu")
+    assert sht.legendre_contract.launches == launches

@@ -81,7 +81,9 @@ def test_port_imports_no_jax_and_no_nemo_tpu():
                 "nemo_tpu_torch.models.qfit",
                 "nemo_tpu_torch.models.scaling", "nemo_tpu_torch.mock",
                 "nemo_tpu_torch.plotSettings",
-                "nemo_tpu_torch.cli.nemoMass_main"):
+                "nemo_tpu_torch.cli.nemoMass_main",
+                "nemo_tpu_torch.ops.grf", "nemo_tpu_torch.ops.sht",
+                "nemo_tpu_torch.cli.nemoModel_main"):
         assert mod in lines["NAMES"].split(), mod
     assert lines["HITS"] == "[]"
     assert lines["LEAKED"] == "[]"
@@ -167,7 +169,13 @@ def test_no_path_into_nemo_tpu():
 COPIED_FUNCTIONS = [("maps.py", name) for name in (
     "addWhiteNoise", "maskOutSources", "applyPointSourceMask",
     "sourceInjectionTest", "positionRecoveryAnalysis", "noiseBiasAnalysis",
-    "pixScaleXRadPerRow")]
+    "pixScaleXRadPerRow", "maxAbsDecDeg", "resolveSimMethod",
+    "estimateContaminationFromInvertedMaps",
+    "estimateContaminationFromSkySim", "plotContamination",
+    "estimateContamination")] + [
+    ("ops/sht.py", name) for name in (
+        "_lgc_table", "car_ring_geometry", "ring_weights")] + [
+    ("ops/grf.py", "dec_band_count")]
 
 
 def _function_source(path, name):

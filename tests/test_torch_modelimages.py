@@ -229,9 +229,21 @@ def test_preprocess_branch_matches_jax(sky, branch):
 
 
 def test_cmb_substitution_names_its_roadmap_item(sky):
-    d = maps.MapDict(dict(sky["maps"][0], CMBSimSeed=3))
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    """The CMB substitution of sky-sim runs (ROADMAP item 10c, ported):
+    the seeded source-free sky replaces the data, zero where the weights
+    are; the same seed gives the same sky, another seed another.  Its
+    parity with the JAX package is held in tests/test_torch_sims.py."""
+    def preprocessed(seed):
+        d = maps.MapDict(dict(sky["maps"][0], CMBSimSeed=seed))
         d.preprocess("PRIMARY")
+        return np.asarray(d["data"])
+    a, b, c = preprocessed(3), preprocessed(3), preprocessed(4)
+    raw = maps.MapDict(dict(sky["maps"][0]))
+    raw.preprocess("PRIMARY")
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c) and not np.array_equal(a, raw["data"])
+    assert np.all(np.isfinite(a)) and np.all(a[:, :6] == 0)
+    assert a[:, 6:].std() > 20.0            # the 20 uK noise plus the CMB
 
 
 # -- noise-model catalogs ---------------------------------------------------------
