@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 -c 'import chip_smoke; chip_smoke.legendre_only()'
+                                        # phases 1, 2 and 14a only
 
 Builds the port's CUDA kernels from the checkout, holds each against its
 plain torch version at the main paths' shapes, then runs the one-tile cluster
@@ -22,7 +24,8 @@ non-zero and prints no result):
   2 build: nvcc builds of nemo_tpu_torch/csrc/rms_cells.cu,
     label_components.cu, boltzmann_rk4.cu and legendre_contract.cu,
     started together, seconds, and ptxas's register and spill report of
-    the Boltzmann and Legendre kernels;
+    the Boltzmann and Legendre kernels (synthesis and analysis, float32
+    and float64);
   3 kernels vs plain versions on the card, timed with CUDA events in the
     order plain, kernel(s), kernel(s), plain, each beside its bound:
     rms_cells' staged and streaming variants (f64 rtol 1e-10, f32 rtol
@@ -82,10 +85,13 @@ non-zero and prints no result):
  14 sims: (a) the Legendre kernel (csrc/legendre_contract.cu) against its
     plain version on the rings of one dec -62 .. -54.5 tile at lmax = mmax
     = 6,000, synthesis and analysis, float32 and float64, timed plain,
-    kernel, kernel, plain (float64 within 1e-10 of max |plain|; float32
-    within 1e-5 of the std, or of max |alm| in analysis), two kernel calls
-    bitwise equal; (b) the nemo CLI on the batched engine over phase 7's
-    survey re-centred at dec -47 (12 tiles on the curved path, 4 flat),
+    kernel, kernel, plain, each call beside the kernel's own time (CUDA
+    events around its launch): synthesis bitwise equal to plain,
+    analysis float64 within 1e-10 of max |plain| and float32 within 1e-5
+    of max |alm|; two kernel calls bitwise equal; synthesis float32 again
+    at nemoModel's lmax 12,000, bitwise equal to one plain call; (b) the
+    nemo CLI on the batched engine over phase 7's survey re-centred at dec
+    -47 (12 tiles on the curved path, 4 flat),
     with the quickstart's two scales and noiseParams dataMap, model and
     max(dataMap,CMB): seconds, stages, sims and clusters recovered; the
     model run launches the synthesis 48 times with 16 flat draws and no
@@ -1831,12 +1837,38 @@ def time_once(fn):
     return out, start.elapsed_time(stop)
 
 
+def kernel_only_ms(sht, fn, reps):
+    """Mean ms a call of ``fn`` spends in the Legendre kernel itself: CUDA
+    events recorded around each launch (``sht._launch``) of ``reps``
+    calls, after one warm call."""
+    import torch
+    events = []
+    launch = sht._launch
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(*args)
+        stop.record()
+        events.append((start, stop))
+
+    fn()
+    with mock.patch.object(sht, "_launch", timed):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
 def check_legendre(sht, card, lmax=SIM_LMAX, reps=3):
     """Phase 14a: the Legendre kernel against its plain version on the
     rings of one dec -62 .. -54.5 tile at lmax = mmax = ``lmax``, both
-    directions, float32 and float64, timed plain, kernel, kernel, plain;
-    two kernel calls bitwise equal.  Synthesis takes a lensed-CMB alm from
-    rand_alm, analysis the ring coefficients of a white map."""
+    directions, float32 and float64, timed plain, kernel, kernel, plain
+    (the call), then the kernel's launches alone; synthesis bitwise equal
+    to plain, analysis within its tolerance, two kernel calls bitwise
+    equal.  Synthesis takes a lensed-CMB alm from rand_alm, analysis the ring coefficients
+    of a white map."""
     import torch
     from nemo_tpu_torch.ops import grf
     thetas, nphi, wts, _ = legendre_rings_of_tile()
@@ -1887,22 +1919,66 @@ def check_legendre(sht, card, lmax=SIM_LMAX, reps=3):
                 raise RuntimeError("legendre %s %s: max error %.3e over the "
                                    "tolerance %.3e" % (direction, name, err,
                                                        tol))
+            equal = bool(torch.equal(a, ref))
+            if not adj and not equal:
+                raise RuntimeError("legendre synthesis %s: not bitwise "
+                                   "equal to plain" % name)
+            kms = kernel_only_ms(sht, kernel, reps)
             bms, by = legendre_bound(direction, lmax, R, dtype)
             ms = (k0 + k1) / 2
             res[(direction, name)] = {
-                "ms": ms, "plain_ms": (p0 + p1) / 2, "bound_ms": bms,
-                "bound_by": by, "max_abs_err": err, "tol": tol,
-                "equal_to_plain": bool(torch.equal(a, ref))}
-            phase(14, "legendre %s %s, lmax %d, %d rings: kernel %.3f / "
-                  "%.3f ms, plain %.1f / %.1f ms (%.0fx), bound %.3f ms "
-                  "(%s, %.1f%%), max |err| %.3e (tolerance %.3e), equal "
+                "ms": ms, "kernel_ms": kms, "plain_ms": (p0 + p1) / 2,
+                "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                "tol": tol, "equal_to_plain": equal}
+            phase(14, "legendre %s %s, lmax %d, %d rings: call %.3f / "
+                  "%.3f ms, kernel %.3f ms, plain %.1f / %.1f ms "
+                  "(%.0fx), bound %.3f ms (%s, %.1f%% of the call, %.1f%% "
+                  "of the kernel), max |err| %.3e (tolerance %.3e), equal "
                   "to plain %s, two kernel calls bitwise equal (%s)"
-                  % (direction, name, lmax, R, k0, k1, p0, p1,
-                     (p0 + p1) / (k0 + k1), bms, by, 100 * bms / ms, err,
-                     tol, res[(direction, name)]["equal_to_plain"], card))
+                  % (direction, name, lmax, R, k0, k1, kms, p0, p1, (p0 + p1) / (k0 + k1), bms, by,
+                     100 * bms / ms, 100 * bms / kms, err, tol, equal,
+                     card))
             del ref, a, b, re, im
             torch.cuda.empty_cache()
+    res[("synthesis", "float32 lmax %d" % MODEL_LMAX)] = check_legendre_at(
+        sht, card, thetas, g, MODEL_LMAX, reps)
     return res
+
+
+def check_legendre_at(sht, card, thetas, g, lmax, reps):
+    """Synthesis float32 on the same rings at nemoModel's CMB band limit
+    (lmax = mmax = ``lmax``): bitwise equal to one plain call, two kernel
+    calls bitwise equal, the call and the kernel alone timed."""
+    import torch
+    from nemo_tpu_torch.ops import grf
+    alm = sht.rand_alm(grf.lensedClTT()[:lmax + 1], lmax=lmax, generator=g)
+    re, im = alm.real.float(), alm.imag.float()
+    del alm
+    th = torch.as_tensor(thetas, dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return sht.legendre_contract(thetas, re, im, lmax, lmax,
+                                     dtype=torch.float32, device="cuda")
+
+    ref, pms = time_once(lambda: sht._legendre_contract_plain(
+        th, re, im, lmax, lmax))
+    a = kernel()
+    ms = time_ms(kernel, reps)
+    kms = kernel_only_ms(sht, kernel, reps)
+    if not (torch.equal(a, ref) and torch.equal(a, kernel())):
+        raise RuntimeError("legendre synthesis float32 at lmax %d: not "
+                           "bitwise equal to plain, or two calls differ"
+                           % lmax)
+    bms, by = legendre_bound("synthesis", lmax, len(thetas), torch.float32)
+    phase(14, "legendre synthesis float32, lmax %d, %d rings: call %.3f "
+          "ms, kernel %.3f ms, plain %.1f ms, bound %.3f ms (%s, %.1f%% of "
+          "the kernel), bitwise equal to plain and two kernel calls "
+          "bitwise equal (%s)" % (lmax, len(thetas), ms, kms, pms, bms, by,
+                                  100 * bms / kms, card))
+    del ref, a, re, im
+    torch.cuda.empty_cache()
+    return {"ms": ms, "kernel_ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "equal_to_plain": True}
 
 
 SIM_LABELS = (PHOT, "Arnaud_M4e14_z0p2")   # the quickstart's two scales
@@ -2312,10 +2388,58 @@ def nemo_model_phase(card, device="cuda"):
     return counts
 
 
+def legendre_ptxas(cuda_build, sht):
+    """Phase 2: ptxas's registers and spills of each Legendre kernel:
+    synthesis (4 rings a thread in float32, 2 in float64) and analysis."""
+    import torch
+    log = cuda_build.BUILD_LOGS.get(sht.SOURCE, "")
+    for name, t, dtype in (("float32", "f", torch.float32),
+                           ("float64", "d", torch.float64)):
+        k = sht.synthesis_geometry(1, 1, dtype)[0]
+        phase(2, "ptxas, legendre_contract synthesis %s, %d rings a "
+              "thread: %s" % (name, k, ptxas_report(
+                  log, "synthesis_kernelI%sLi%dE" % (t, k))))
+        phase(2, "ptxas, legendre_contract analysis %s: %s" % (
+            name, ptxas_report(log, "analysis_kernelI%sE" % t)))
+
+
+def legendre_only():
+    """Phases 1, 2 and 14a alone, for a change to the Legendre kernel:
+    build csrc/legendre_contract.cu, print ptxas's report of its kernels,
+    run check_legendre, and print its record and the card; no ``ok``
+    line.  ``python3 -c 'import chip_smoke; chip_smoke.legendre_only()'``"""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, ROOT)
+    from nemo_tpu_torch import cuda_build
+    from nemo_tpu_torch.ops import sht
+    tStart = time.perf_counter()
+    card = nvidia_smi()
+    phase(1, "card: %s | torch %s | CUDA %s" % (card, torch.__version__,
+                                                torch.version.cuda))
+    cuda_build.build((sht.SOURCE,))
+    sht.load_kernel()
+    phase(2, "build: %s in %.2f s" % (
+        sht.SOURCE, cuda_build.BUILD_SECONDS.get(sht.SOURCE, 0.0)))
+    legendre_ptxas(cuda_build, sht)
+    leg = check_legendre(sht, card)
+    print(json.dumps({"legendre": {
+        "%s %s" % key: {k: v for k, v in r.items() if k != "tol"}
+        for key, r in leg.items()}}))
+    print("total %.1f s" % (time.perf_counter() - tStart))
+    print(card)
+
+
 def legendre_row(leg, direction, launches, extra):
     """The kernels line's record of one Legendre direction: float32 (the
-    card's default) with the float64 run beside it."""
+    card's default) with the float64 run beside it, and synthesis at
+    nemoModel's band limit."""
     r32, r64 = leg[(direction, "float32")], leg[(direction, "float64")]
+    big = leg.get((direction, "float32 lmax %d" % MODEL_LMAX))
+    if big:
+        extra = dict(extra, **{k + "_lmax%d" % MODEL_LMAX: big[k] for k in (
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "equal_to_plain")})
     if launches <= 0:
         raise RuntimeError("legendre %s: no launch on its main path"
                            % direction)
@@ -2328,9 +2452,14 @@ def legendre_row(leg, direction, launches, extra):
         "ms": r32["ms"], "plain_ms": r32["plain_ms"],
         "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
         "library_ms": None, "share_of_bound": r32["bound_ms"] / r32["ms"],
-        "shape": "lmax = mmax = %d, 896 rings, float32" % SIM_LMAX,
+        "shape": "lmax = mmax = %d, 896 rings, float32; ms is the call "
+                 "(seed tables, one launch; analysis also packs its "
+                 "rows), kernel_ms the launch alone" % SIM_LMAX,
+        "kernel_ms": r32["kernel_ms"],
+        "kernel_share_of_bound": r32["bound_ms"] / r32["kernel_ms"],
         "equal_to_plain": r32["equal_to_plain"],
-        "ms_float64": r64["ms"], "plain_ms_float64": r64["plain_ms"],
+        "ms_float64": r64["ms"], "kernel_ms_float64": r64["kernel_ms"],
+        "plain_ms_float64": r64["plain_ms"],
         "bound_ms_float64": r64["bound_ms"],
         "max_abs_err_float64": r64["max_abs_err"],
         "equal_to_plain_float64": r64["equal_to_plain"]}, **extra)
@@ -2373,12 +2502,7 @@ def main():
     phase(2, "ptxas, boltzmann_rk4: %s" % ptxas_report(
         cuda_build.BUILD_LOGS.get("boltzmann_rk4.cu", ""),
         "boltzmann_rk4_kernel"))
-    for tag, entry in (("synthesis float32", "legendre_kernelIfLb0"),
-                       ("synthesis float64", "legendre_kernelIdLb0"),
-                       ("analysis float32", "legendre_kernelIfLb1"),
-                       ("analysis float64", "legendre_kernelIdLb1")):
-        phase(2, "ptxas, legendre_contract %s: %s" % (tag, ptxas_report(
-            cuda_build.BUILD_LOGS.get(sht.SOURCE, ""), entry)))
+    legendre_ptxas(cuda_build, sht)
 
     rms = check_rms(noise, card)
     labelErr, labelMs, labelBound, labelBy = check_labels(detect, card)

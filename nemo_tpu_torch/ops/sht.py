@@ -20,9 +20,10 @@ lane carries a value in (-2^48, 2^48) and a power-of-two exponent, seeded
 from log2|lambda_mm| = lgc_m + m log2 sin(theta) and renormalised in hops
 of at most 2^96.  Two versions of the contraction:
 
-* ``csrc/legendre_contract.cu``, the hand-written CUDA kernel (one thread a
-  (m, ring) lane from l = m, one m a block row; see the source), launched
-  on CUDA tensors, counted in ``legendre_contract.launches``;
+* ``csrc/legendre_contract.cu``, the hand-written CUDA kernel (synthesis:
+  several (m, ring) lanes a thread from l = m, one block per m with the
+  (l, m) factors filled once; analysis: a thread a lane; see the source),
+  launched on CUDA tensors, counted in ``legendre_contract.launches``;
 * :func:`_legendre_contract_plain`, the JAX scan as a Python loop over l
   in torch ops with its expressions and masks, run for the CPU, counted in
   ``_legendre_contract_plain.calls``.
@@ -45,10 +46,13 @@ __all__ = ["alm2map_car", "map2alm_car", "rand_alm", "sim_cmb_map_curved",
            "car_ring_geometry", "legendre_contract"]
 
 SOURCE = "legendre_contract.cu"
-# synthesis covers the rings with blocks of this many threads; analysis
-# sums a row over the rings of one block, so a block takes up to 1,024
-# rings and further rings come in further launches
-SYNTHESIS_THREADS = 256
+# synthesis: each thread runs several (m, ring) lanes of one m (4 in
+# float32, 2 in float64, fixed by type in the kernel's source), and one
+# block of up to SYNTHESIS_MAX_THREADS threads takes all the rings of an m,
+# further rings further blocks; analysis sums a row over the rings of one
+# block, so a block takes up to 1,024 rings and further rings come in
+# further launches
+SYNTHESIS_MAX_THREADS = 512
 ANALYSIS_MAX_RINGS = 1024
 
 
@@ -150,17 +154,40 @@ _legendre_contract_plain.calls = 0
 
 
 def _declare(lib):
-    for name in ("synthesis", "analysis"):
+    # synthesis: ldA, R, lmax, nm, threads, blocks; analysis: ldR, r0,
+    # R, lmax, nm, threads, accumulate
+    for name, ints in (("synthesis", 6), ("analysis", 7)):
         for suffix in ("f32", "f64"):
             fn = getattr(lib, "nemo_legendre_%s_%s" % (name, suffix))
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * ints \
                 + [ctypes.c_void_p]
 
 
 def load_kernel():
     """Build (first call) and load the Legendre kernel's library."""
     return cuda_build.load_library(SOURCE, _declare)
+
+
+def synthesis_geometry(R, nm, dtype):
+    """Launch geometry of the synthesis kernel over ``R`` rings and ``nm``
+    values of m in ``dtype``: ``(k, threads, (ring blocks, nm))``, ``k``
+    the rings a thread, 4 in float32 and 2 in float64 as the kernel's
+    ``SynRings`` fixes them.  The fewest blocks of at most
+    ``SYNTHESIS_MAX_THREADS`` threads cover ceil(R / k) threads, each
+    block's threads rounded up to a warp: up to ``SYNTHESIS_MAX_THREADS`` x
+    k rings an m's factors are filled once, by one block whose idle lanes
+    lie in its last warp."""
+    if dtype not in (torch.float32, torch.float64) or R < 1 \
+            or not 1 <= nm <= 65535:
+        raise ValueError("synthesis geometry: float32 or float64, R >= 1 "
+                         "and 1 <= nm <= 65535, got %s, R %d, nm %d"
+                         % (dtype, R, nm))
+    k = 4 if dtype == torch.float32 else 2
+    lanes = -(-R // k)
+    blocks = -(-lanes // SYNTHESIS_MAX_THREADS)
+    threads = 32 * -(-(-(-lanes // blocks)) // 32)
+    return k, threads, (blocks, nm)
 
 
 def _triangle(nm, lmax, device):
@@ -209,10 +236,10 @@ def _legendre_contract_cuda(thetas, alm_re, alm_im, lmax, mmax,
     ct = ct.contiguous()
     seedP = seedP[:nm].contiguous()
     seedS = seedS[:nm].contiguous()
-    tri = _triangle(nm, lmax, dev)
-    ntri = int(tri.sum())
     with torch.cuda.device(dev):
         if adjoint:
+            tri = _triangle(nm, lmax, dev)
+            ntri = int(tri.sum())
             Gre = (alm_re * weights[None, :])[:nm].contiguous()
             Gim = (alm_im * weights[None, :])[:nm].contiguous()
             outRe = torch.empty(ntri, dtype=dtype, device=dev)
@@ -229,13 +256,15 @@ def _legendre_contract_cuda(thetas, alm_re, alm_im, lmax, mmax,
             out = torch.zeros((2, lmax + 1, M1), dtype=dtype, device=dev)
             out[:, :, :nm] = packed.transpose(1, 2)
             return out
-        almRe = alm_re[:lmax + 1, :nm].T[tri].contiguous()
-        almIm = alm_im[:lmax + 1, :nm].T[tri].contiguous()
+        # the kernel reads alm[l, m] in place: rows 0..lmax, row stride M1
+        almRe = alm_re.contiguous()
+        almIm = alm_im.contiguous()
         F = torch.zeros((2, M1, R), dtype=dtype, device=dev)
+        _, threads, (blocks, _) = synthesis_geometry(R, nm, dtype)
         _launch("synthesis", dtype, ct.data_ptr(), seedP.data_ptr(),
                 seedS.data_ptr(), almRe.data_ptr(), almIm.data_ptr(),
-                F[0].data_ptr(), F[1].data_ptr(), R, 0, R, lmax, nm,
-                SYNTHESIS_THREADS, 0)
+                F[0].data_ptr(), F[1].data_ptr(), M1, R, lmax, nm, threads,
+                blocks)
         return F
 
 
