@@ -89,7 +89,9 @@ non-zero and prints no result):
     events around its launch): synthesis bitwise equal to plain,
     analysis float64 within 1e-10 of max |plain| and float32 within 1e-5
     of max |alm|; two kernel calls bitwise equal; synthesis float32 again
-    at nemoModel's lmax 12,000, bitwise equal to one plain call; (b) the
+    at nemoModel's lmax 12,000, bitwise equal to one plain call; analysis
+    float32 on its multi-block path (3,584 rings, a survey map's height, at
+    lmax 2,000) within 1e-5 of max |alm| of plain; (b) the
     nemo CLI on the batched engine over phase 7's survey re-centred at dec
     -47 (12 tiles on the curved path, 4 flat),
     with the quickstart's two scales and noiseParams dataMap, model and
@@ -1942,6 +1944,8 @@ def check_legendre(sht, card, lmax=SIM_LMAX, reps=3):
             torch.cuda.empty_cache()
     res[("synthesis", "float32 lmax %d" % MODEL_LMAX)] = check_legendre_at(
         sht, card, thetas, g, MODEL_LMAX, reps)
+    res[("analysis", "float32 %d rings" % MULTI_RINGS)] = \
+        check_analysis_blocks(sht, card, g, reps)
     return res
 
 
@@ -1979,6 +1983,61 @@ def check_legendre_at(sht, card, thetas, g, lmax, reps):
     torch.cuda.empty_cache()
     return {"ms": ms, "kernel_ms": kms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "equal_to_plain": True}
+
+
+MULTI_RINGS = 4 * SHAPE[0]   # phase 13's survey map height
+MULTI_LMAX = 2000
+
+
+def check_analysis_blocks(sht, card, g, reps, R=MULTI_RINGS,
+                          lmax=MULTI_LMAX):
+    """Analysis float32 on the multi-block path: the ``R`` rows of a survey
+    map at dec -47 (more rings than one block takes) at lmax = mmax =
+    ``lmax``, the ring coefficients of a white map; within 1e-5 of max
+    |alm| of one plain call, two kernel calls bitwise equal, the call and
+    the kernel alone timed."""
+    import torch
+    thetas, nphi, wts, _ = legendre_rings_of_tile(
+        shape=(R, SHAPE[1]), decDeg=SIM_DEC)
+    blocks = sht.legendre_geometry(R, lmax + 1, torch.float32)[2][0]
+    if blocks < 2:
+        raise RuntimeError("analysis at %d rings: %d block an m, not the "
+                           "multi-block path" % (R, blocks))
+    G = (torch.randn((2, lmax + 1, R), generator=g, dtype=torch.float64,
+                     device="cuda") * (2 * np.pi / nphi)).float()
+    th = torch.as_tensor(thetas, dtype=torch.float32, device="cuda")
+    w = torch.as_tensor(wts, dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return sht.legendre_contract(thetas, G[0], G[1], lmax, lmax,
+                                     adjoint=True, weights=wts,
+                                     dtype=torch.float32, device="cuda")
+
+    ref, pms = time_once(lambda: sht._legendre_contract_plain(
+        th, G[0], G[1], lmax, lmax, True, w))
+    a = kernel()
+    ms = time_ms(kernel, reps)
+    kms = kernel_only_ms(sht, kernel, reps)
+    if not torch.equal(a, kernel()):
+        raise RuntimeError("legendre analysis at %d rings: two kernel calls "
+                           "differ" % R)
+    r = ref.double()
+    err = float(torch.max(torch.abs(a.double() - r)))
+    tol = 1e-5 * float(torch.max(torch.abs(r)))
+    if not (err <= tol and bool(torch.isfinite(a).all())):
+        raise RuntimeError("legendre analysis at %d rings: max error %.3e "
+                           "over the tolerance %.3e" % (R, err, tol))
+    bms, by = legendre_bound("analysis", lmax, R, torch.float32)
+    phase(14, "legendre analysis float32, lmax %d, %d rings (%d blocks an "
+          "m): call %.3f ms, kernel %.3f ms, plain %.1f ms, bound %.3f ms "
+          "(%s, %.1f%% of the kernel), max |err| %.3e (tolerance %.3e), two "
+          "kernel calls bitwise equal (%s)" % (lmax, R, blocks, ms, kms, pms,
+                                              bms, by, 100 * bms / kms, err,
+                                              tol, card))
+    del ref, a, G
+    torch.cuda.empty_cache()
+    return {"ms": ms, "kernel_ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err, "tol": tol}
 
 
 SIM_LABELS = (PHOT, "Arnaud_M4e14_z0p2")   # the quickstart's two scales
@@ -2390,24 +2449,23 @@ def nemo_model_phase(card, device="cuda"):
 
 def legendre_ptxas(cuda_build, sht):
     """Phase 2: ptxas's registers and spills of each Legendre kernel:
-    synthesis (4 rings a thread in float32, 2 in float64) and analysis."""
+    synthesis and analysis (4 rings a thread in float32, 2 in float64)."""
     import torch
     log = cuda_build.BUILD_LOGS.get(sht.SOURCE, "")
     for name, t, dtype in (("float32", "f", torch.float32),
                            ("float64", "d", torch.float64)):
-        k = sht.synthesis_geometry(1, 1, dtype)[0]
-        phase(2, "ptxas, legendre_contract synthesis %s, %d rings a "
-              "thread: %s" % (name, k, ptxas_report(
-                  log, "synthesis_kernelI%sLi%dE" % (t, k))))
-        phase(2, "ptxas, legendre_contract analysis %s: %s" % (
-            name, ptxas_report(log, "analysis_kernelI%sE" % t)))
+        k = sht.legendre_geometry(1, 1, dtype)[0]
+        for direction in ("synthesis", "analysis"):
+            phase(2, "ptxas, legendre_contract %s %s, %d rings a thread: %s"
+                  % (direction, name, k, ptxas_report(
+                      log, "%s_kernelI%sLi%dE" % (direction, t, k))))
 
 
 def legendre_only():
     """Phases 1, 2 and 14a alone, for a change to the Legendre kernel:
     build csrc/legendre_contract.cu, print ptxas's report of its kernels,
-    run check_legendre, and print its record and the card; no ``ok``
-    line.  ``python3 -c 'import chip_smoke; chip_smoke.legendre_only()'``"""
+    run check_legendre, and print the record and the card; no ``ok`` line.
+    ``python3 -c 'import chip_smoke; chip_smoke.legendre_only()'``"""
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -2440,6 +2498,12 @@ def legendre_row(leg, direction, launches, extra):
     if big:
         extra = dict(extra, **{k + "_lmax%d" % MODEL_LMAX: big[k] for k in (
             "ms", "kernel_ms", "plain_ms", "bound_ms", "equal_to_plain")})
+    multi = leg.get((direction, "float32 %d rings" % MULTI_RINGS))
+    if multi:
+        extra = dict(extra, **{"%s_R%d_lmax%d" % (k, MULTI_RINGS, MULTI_LMAX):
+                               multi[k] for k in ("ms", "kernel_ms",
+                                                  "plain_ms", "bound_ms",
+                                                  "max_abs_err")})
     if launches <= 0:
         raise RuntimeError("legendre %s: no launch on its main path"
                            % direction)
@@ -2453,8 +2517,8 @@ def legendre_row(leg, direction, launches, extra):
         "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
         "library_ms": None, "share_of_bound": r32["bound_ms"] / r32["ms"],
         "shape": "lmax = mmax = %d, 896 rings, float32; ms is the call "
-                 "(seed tables, one launch; analysis also packs its "
-                 "rows), kernel_ms the launch alone" % SIM_LMAX,
+                 "(seed tables, one launch), kernel_ms the launch alone"
+                 % SIM_LMAX,
         "kernel_ms": r32["kernel_ms"],
         "kernel_share_of_bound": r32["bound_ms"] / r32["kernel_ms"],
         "equal_to_plain": r32["equal_to_plain"],

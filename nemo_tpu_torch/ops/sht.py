@@ -20,10 +20,12 @@ lane carries a value in (-2^48, 2^48) and a power-of-two exponent, seeded
 from log2|lambda_mm| = lgc_m + m log2 sin(theta) and renormalised in hops
 of at most 2^96.  Two versions of the contraction:
 
-* ``csrc/legendre_contract.cu``, the hand-written CUDA kernel (synthesis:
-  several (m, ring) lanes a thread from l = m, one block per m with the
-  (l, m) factors filled once; analysis: a thread a lane; see the source),
-  launched on CUDA tensors, counted in ``legendre_contract.launches``;
+* ``csrc/legendre_contract.cu``, the hand-written CUDA kernel (both
+  directions: several (m, ring) lanes a thread from l = m, one block per m
+  with the (l, m) factors filled once; analysis sums each thread's rings
+  in registers, reduces a warp's rows once every 8 l and writes alm in
+  place; see the source), launched on CUDA tensors, counted in
+  ``legendre_contract.launches``;
 * :func:`_legendre_contract_plain`, the JAX scan as a Python loop over l
   in torch ops with its expressions and masks, run for the CPU, counted in
   ``_legendre_contract_plain.calls``.
@@ -46,14 +48,13 @@ __all__ = ["alm2map_car", "map2alm_car", "rand_alm", "sim_cmb_map_curved",
            "car_ring_geometry", "legendre_contract"]
 
 SOURCE = "legendre_contract.cu"
-# synthesis: each thread runs several (m, ring) lanes of one m (4 in
+# in both directions each thread runs several (m, ring) lanes of one m (4 in
 # float32, 2 in float64, fixed by type in the kernel's source), and one
-# block of up to SYNTHESIS_MAX_THREADS threads takes all the rings of an m,
-# further rings further blocks; analysis sums a row over the rings of one
-# block, so a block takes up to 1,024 rings and further rings come in
-# further launches
-SYNTHESIS_MAX_THREADS = 512
-ANALYSIS_MAX_RINGS = 1024
+# block of up to MAX_THREADS threads takes all the rings of an m, further
+# rings further blocks (in analysis, each block's partial rows a plane of
+# its own, summed by the wrapper)
+MAX_THREADS = 512
+RINGS_A_THREAD = {torch.float32: 4, torch.float64: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +73,18 @@ def _lgc_table(mmax):
     return lgc
 
 
+def _as_device(a, dtype, dev):
+    """``a`` (an array or a tensor) as a ``dtype`` tensor on ``dev``.  A host
+    array bound for the card is copied from pinned memory without blocking,
+    so the copy makes no host sync."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=dtype)
+    t = torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def _seed_tables(thetas, mmax):
     """(cos theta (R,), seed mantissa (M1, R), seed exponent (M1, R)) in
     ``thetas``' dtype and device, with the reference's expressions:
@@ -83,7 +96,7 @@ def _seed_tables(thetas, mmax):
     # clamp away sin(theta) = 0 at exact poles (no 0 * log2(0) = nan)
     lg2sin = torch.log2(torch.clamp(torch.sin(thetas), min=1e-30))[None, :]
     mv = torch.arange(M1, dtype=dtype, device=dev)[:, None]
-    lgc = torch.as_tensor(_lgc_table(mmax), dtype=dtype, device=dev)[:, None]
+    lgc = _as_device(_lgc_table(mmax), dtype, dev)[:, None]
     msign = torch.where(torch.arange(M1, device=dev)[:, None] % 2 == 0,
                         1.0, -1.0).to(dtype)
     lg = lgc + mv * lg2sin
@@ -154,14 +167,18 @@ _legendre_contract_plain.calls = 0
 
 
 def _declare(lib):
-    # synthesis: ldA, R, lmax, nm, threads, blocks; analysis: ldR, r0,
-    # R, lmax, nm, threads, accumulate
-    for name, ints in (("synthesis", 6), ("analysis", 7)):
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, "nemo_legendre_%s_%s" % (name, suffix))
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * ints \
-                + [ctypes.c_void_p]
+    # synthesis: 7 pointers, then ldA, R, lmax, nm, threads, blocks;
+    # analysis: 8 pointers, then ldA, R, lmax, nm, threads, blocks, and the
+    # plane stride of its partial rows
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, "nemo_legendre_synthesis_" + suffix)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn = getattr(lib, "nemo_legendre_analysis_" + suffix)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 def load_kernel():
@@ -169,30 +186,29 @@ def load_kernel():
     return cuda_build.load_library(SOURCE, _declare)
 
 
-def synthesis_geometry(R, nm, dtype):
-    """Launch geometry of the synthesis kernel over ``R`` rings and ``nm``
-    values of m in ``dtype``: ``(k, threads, (ring blocks, nm))``, ``k``
-    the rings a thread, 4 in float32 and 2 in float64 as the kernel's
-    ``SynRings`` fixes them.  The fewest blocks of at most
-    ``SYNTHESIS_MAX_THREADS`` threads cover ceil(R / k) threads, each
-    block's threads rounded up to a warp: up to ``SYNTHESIS_MAX_THREADS`` x
-    k rings an m's factors are filled once, by one block whose idle lanes
-    lie in its last warp."""
-    if dtype not in (torch.float32, torch.float64) or R < 1 \
-            or not 1 <= nm <= 65535:
-        raise ValueError("synthesis geometry: float32 or float64, R >= 1 "
-                         "and 1 <= nm <= 65535, got %s, R %d, nm %d"
+def legendre_geometry(R, nm, dtype):
+    """Launch geometry of the Legendre kernel, either direction, over ``R``
+    rings and ``nm`` values of m in ``dtype``: ``(k, threads, (ring blocks,
+    nm))``, ``k`` the rings a thread, 4 in float32 and 2 in float64 as the
+    kernel's ``Rings`` fixes them.  The fewest blocks of at most
+    ``MAX_THREADS`` threads cover ceil(R / k) threads, each block's threads
+    rounded up to a warp: up to ``MAX_THREADS`` x k rings an m's factors are
+    filled once, by one block whose idle lanes lie in its last warp; with
+    more, each of the m's analysis blocks writes its partial rows to a plane
+    of its own."""
+    if dtype not in RINGS_A_THREAD or R < 1 or not 1 <= nm <= 65535:
+        raise ValueError("legendre geometry: float32 or float64, R >= 1 and "
+                         "1 <= nm <= 65535, got %s, R %d, nm %d"
                          % (dtype, R, nm))
-    k = 4 if dtype == torch.float32 else 2
+    k = RINGS_A_THREAD[dtype]
     lanes = -(-R // k)
-    blocks = -(-lanes // SYNTHESIS_MAX_THREADS)
+    blocks = -(-lanes // MAX_THREADS)
     threads = 32 * -(-(-(-lanes // blocks)) // 32)
     return k, threads, (blocks, nm)
 
 
 def _triangle(nm, lmax, device):
-    """(nm, lmax+1) mask of l >= m: its True entries in row-major order are
-    the kernel's m-major packed triangle."""
+    """(nm, lmax+1) mask of l >= m."""
     ls = torch.arange(lmax + 1, device=device)
     return ls[None, :] >= torch.arange(nm, device=device)[:, None]
 
@@ -238,29 +254,26 @@ def _legendre_contract_cuda(thetas, alm_re, alm_im, lmax, mmax,
     seedS = seedS[:nm].contiguous()
     with torch.cuda.device(dev):
         if adjoint:
-            tri = _triangle(nm, lmax, dev)
-            ntri = int(tri.sum())
-            Gre = (alm_re * weights[None, :])[:nm].contiguous()
-            Gim = (alm_im * weights[None, :])[:nm].contiguous()
-            outRe = torch.empty(ntri, dtype=dtype, device=dev)
-            outIm = torch.empty(ntri, dtype=dtype, device=dev)
-            for r0 in range(0, R, ANALYSIS_MAX_RINGS):
-                Rc = min(ANALYSIS_MAX_RINGS, R - r0)
-                _launch("analysis", dtype, ct.data_ptr(), seedP.data_ptr(),
-                        seedS.data_ptr(), Gre.data_ptr(), Gim.data_ptr(),
-                        outRe.data_ptr(), outIm.data_ptr(), R, r0, Rc,
-                        lmax, nm, 32 * ((Rc + 31) // 32), int(r0 > 0))
-            packed = torch.zeros((2, nm, lmax + 1), dtype=dtype, device=dev)
-            packed[0][tri] = outRe
-            packed[1][tri] = outIm
-            out = torch.zeros((2, lmax + 1, M1), dtype=dtype, device=dev)
-            out[:, :, :nm] = packed.transpose(1, 2)
-            return out
+            # G and w are read as they are (the kernel takes G w), and alm
+            # written in place: rows l >= m of columns m < nm, one plane a
+            # ring block, summed in block order
+            Gre = alm_re.contiguous()
+            Gim = alm_im.contiguous()
+            w = weights.contiguous()
+            _, threads, (blocks, _) = legendre_geometry(R, nm, dtype)
+            planes = torch.zeros((blocks, 2, lmax + 1, M1), dtype=dtype,
+                                 device=dev)
+            _launch("analysis", dtype, ct.data_ptr(), w.data_ptr(),
+                    seedP.data_ptr(), seedS.data_ptr(), Gre.data_ptr(),
+                    Gim.data_ptr(), planes[0, 0].data_ptr(),
+                    planes[0, 1].data_ptr(), M1, R, lmax, nm, threads,
+                    blocks, planes[0].numel())
+            return planes[0] if blocks == 1 else planes.sum(dim=0)
         # the kernel reads alm[l, m] in place: rows 0..lmax, row stride M1
         almRe = alm_re.contiguous()
         almIm = alm_im.contiguous()
         F = torch.zeros((2, M1, R), dtype=dtype, device=dev)
-        _, threads, (blocks, _) = synthesis_geometry(R, nm, dtype)
+        _, threads, (blocks, _) = legendre_geometry(R, nm, dtype)
         _launch("synthesis", dtype, ct.data_ptr(), seedP.data_ptr(),
                 seedS.data_ptr(), almRe.data_ptr(), almIm.data_ptr(),
                 F[0].data_ptr(), F[1].data_ptr(), M1, R, lmax, nm, threads,
@@ -287,12 +300,11 @@ def legendre_contract(thetas, alm_re, alm_im, lmax, mmax, adjoint=False,
     dev = torch.device(device)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError("legendre_contract runs in float32 or float64")
-    th = torch.as_tensor(np.asarray(thetas, dtype=np.float64), dtype=dtype,
-                         device=dev)
-    re = torch.as_tensor(alm_re, device=dev).to(dtype)
-    im = torch.as_tensor(alm_im, device=dev).to(dtype)
-    w = None if weights is None else torch.as_tensor(
-        np.asarray(weights, dtype=np.float64), dtype=dtype, device=dev)
+    th = _as_device(np.asarray(thetas, dtype=np.float64), dtype, dev)
+    re = _as_device(alm_re, dtype, dev)
+    im = _as_device(alm_im, dtype, dev)
+    w = None if weights is None else _as_device(
+        np.asarray(weights, dtype=np.float64), dtype, dev)
     if adjoint and w is None:
         raise ValueError("analysis needs the ring weights")
     if dev.type == "cpu":

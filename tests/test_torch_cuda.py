@@ -477,10 +477,10 @@ def test_legendre_kernel_matches_plain(cuda_card, adjoint, dtype):
     """csrc/legendre_contract.cu against its plain version on the card, in
     both directions: synthesis bitwise equal to plain in both types;
     analysis float64 within 1e-10 of max |plain|, float32 within 1e-5 of
-    max |alm|; two launches bitwise equal.  Covered: mmax < lmax, ring counts that are no
-    multiple of the rings a thread or of 32 (33, 897), more rings than one
-    synthesis block takes (4,097) and > 1,024 rings (analysis in two
-    launches)."""
+    max |alm|; two launches bitwise equal; one launch a call, and an
+    analysis call makes no host sync.  Covered: mmax < lmax, ring counts
+    that are no multiple of the rings a thread or of 32 (33, 897), and more
+    rings than one block takes (4,097: analysis sums its blocks' planes)."""
     from nemo_tpu_torch.ops import sht
     cases = ((300, 300, 200), (200, 150, 1100), (250, 250, 33),
              (220, 180, 897), (120, 120, 4097))
@@ -489,18 +489,29 @@ def test_legendre_kernel_matches_plain(cuda_card, adjoint, dtype):
                                                         nrings=nrings)
         if adjoint:
             args = (Gre[:mmax + 1], Gim[:mmax + 1])
+            k, _, (blocks, _) = sht.legendre_geometry(
+                nrings, min(lmax, mmax) + 1, dtype)
+            assert (blocks > 1) == (nrings > k * sht.MAX_THREADS)
+            assert blocks > 1 or nrings != 4097
         else:
             args = (are[:, :mmax + 1], aim[:, :mmax + 1])
         launches = sht.legendre_contract.launches
         plain = sht._legendre_contract_plain.calls
-        a = sht.legendre_contract(thetas, *args, lmax, mmax, adjoint=adjoint,
-                                  weights=w, dtype=dtype, device=cuda_card)
+        torch.cuda.synchronize()
+        if adjoint:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = sht.legendre_contract(thetas, *args, lmax, mmax,
+                                      adjoint=adjoint, weights=w,
+                                      dtype=dtype, device=cuda_card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         b = sht.legendre_contract(thetas, *args, lmax, mmax, adjoint=adjoint,
                                   weights=w, dtype=dtype, device=cuda_card)
         torch.cuda.synchronize()
         assert sht._legendre_contract_plain.calls == plain
-        nl = 2 * (-(-nrings // sht.ANALYSIS_MAX_RINGS) if adjoint else 1)
-        assert sht.legendre_contract.launches == launches + nl
+        # one launch a call in either direction, whatever the ring count
+        assert sht.legendre_contract.launches == launches + 2
         assert torch.equal(a, b)
         th = torch.as_tensor(thetas, dtype=dtype, device=cuda_card)
         ref = sht._legendre_contract_plain(

@@ -17,8 +17,11 @@ inputs.
   equal at rtol 1e-6.
 """
 
+import contextlib
 import copy
+import hashlib
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from nemo_tpu.parallel import distribute as jdist
 from nemo_tpu.parallel.mesh import get_mesh
 from nemo_tpu_torch import filters, maps, pipelines, startup
 from nemo_tpu_torch.models import beams
+from nemo_tpu_torch.ops import paint
 from nemo_tpu_torch.parallel import distribute
 from nemo_tpu_torch.utils import fits as nfits
 from nemo_tpu_torch.utils import wcs as nwcs
@@ -130,17 +134,126 @@ ROUTES = {
 }
 
 
+def _checksum(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(x))
+    return hashlib.md5(str(a.dtype).encode() + str(a.shape).encode()
+                       + a.tobytes()).hexdigest()[:12]
+
+
+@contextlib.contextmanager
+def recording_paint(log):
+    """Record, for each ``paint_objects`` call, the torch thread count,
+    whether denormals survive, a checksum of every input and of each stage
+    in its order (the distances and profile values of ``interp``, the
+    pixel index and values of ``_accumulate_in_order``, the output), and
+    the objects' positions and window half-sizes."""
+    paintObjects, interp, accumulate = (paint.paint_objects, paint.interp,
+                                        paint._accumulate_in_order)
+
+    def rec_interp(x, xp, fp, *a, **kw):
+        out = interp(x, xp, fp, *a, **kw)
+        if log and log[-1]["open"]:
+            log[-1]["stages"] += [("interp x", _checksum(x)),
+                                  ("interp xp", _checksum(xp)),
+                                  ("interp fp", _checksum(fp)),
+                                  ("interp out", _checksum(out))]
+        return out
+
+    def rec_accumulate(canvas, index, values):
+        accumulate(canvas, index, values)
+        if log and log[-1]["open"]:
+            log[-1]["stages"] += [("pixel index", _checksum(index)),
+                                  ("pixel values", _checksum(values)),
+                                  ("canvas", _checksum(canvas))]
+
+    def rec_paint(shape, pix, ys, xs, amps, r_prof, v_prof, rmax_rad,
+                  dx_rows=None, **kw):
+        dxr = np.full(shape[0], pix[1]) if dx_rows is None else dx_rows
+        entry = {"open": True, "threads": torch.get_num_threads(),
+                 "denormals": bool(torch.tensor(5e-324, dtype=torch.float64)
+                                   * 1.0 != 0),
+                 "inputs": {k: _checksum(v) for k, v in (
+                     ("pix_scales", pix), ("ys", ys), ("xs", xs),
+                     ("amps", amps), ("r_prof", r_prof),
+                     ("v_prof", v_prof), ("rmax", rmax_rad),
+                     ("dx_rows", dxr))},
+                 "ys": np.atleast_1d(ys), "xs": np.atleast_1d(xs),
+                 "wy": int(np.ceil(rmax_rad / pix[0])),
+                 "wx": int(np.ceil(rmax_rad / np.min(dxr))), "stages": []}
+        log.append(entry)
+        out = paintObjects(shape, pix, ys, xs, amps, r_prof, v_prof,
+                           rmax_rad, dx_rows=dx_rows, **kw)
+        entry["stages"].append(("output", _checksum(out)))
+        entry["open"] = False
+        return out
+
+    # paint_objects counts its calls on the name it is reached by
+    rec_paint.calls = paintObjects.calls
+    try:
+        with mock.patch.object(paint, "paint_objects", rec_paint), \
+                mock.patch.object(paint, "interp", rec_interp), \
+                mock.patch.object(paint, "_accumulate_in_order",
+                                  rec_accumulate):
+            yield log
+    finally:
+        paintObjects.calls = rec_paint.calls
+
+
+def describe_difference(got, dev, hostLog, devLog):
+    """'' when the two maps are equal; else which pixels differ, by how
+    much, in which objects' windows, and which recorded input or stage of
+    ``paint_objects`` first differs between the two calls, with each
+    call's torch thread count."""
+    if np.array_equal(got, dev):
+        return ""
+    diff = np.abs(got - dev)
+    bad = diff != 0
+    lines = ["%d of %d pixels differ (max %.3e)" % (bad.sum(), bad.size,
+                                                   diff.max())]
+    for tag, log in (("host", hostLog), ("asDevice", devLog)):
+        lines.append("%s call: %d paint_objects calls, torch threads %s, "
+                     "denormals kept %s" % (tag, len(log),
+                                            [e["threads"] for e in log],
+                                            [e["denormals"] for e in log]))
+    for i, (a, b) in enumerate(zip(hostLog, devLog)):
+        inputs = [k for k in a["inputs"] if a["inputs"][k] != b["inputs"][k]]
+        lines.append("paint_objects call %d: inputs that differ %s "
+                     "(checksums host %s, asDevice %s)"
+                     % (i, inputs or "none", a["inputs"], b["inputs"]))
+        first = next((sa[0] for sa, sb in zip(a["stages"], b["stages"])
+                      if sa != sb), None)
+        lines.append("  first stage that differs: %s; stages host %s, "
+                     "asDevice %s" % (first, a["stages"], b["stages"]))
+        yy, xx = np.nonzero(bad)
+        for j, (y0, x0) in enumerate(zip(a["ys"], a["xs"])):
+            inWin = (np.abs(yy - np.floor(y0)) <= a["wy"] + 1) \
+                & (np.abs(xx - np.floor(x0)) <= a["wx"] + 1)
+            if inWin.any():
+                lines.append("  object %d at (y %.3f, x %.3f): %d differing "
+                             "pixels in its window, max %.3e"
+                             % (j, y0, x0, inWin.sum(),
+                                diff[yy[inWin], xx[inWin]].max()))
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_make_model_image_matches_jax(sky, route):
     key, kw = ROUTES[route]
     args = (SHAPE, sky["wcs"], sky[key], sky["maps"][0]["beamFileName"])
     ref = jmaps.makeModelImage(*args, obsFreqGHz=149.6, **kw)
-    got = maps.makeModelImage(*args, obsFreqGHz=149.6, **kw)
+    with recording_paint([]) as hostLog:
+        got = maps.makeModelImage(*args, obsFreqGHz=149.6, **kw)
     assert got.dtype == np.float64 and got.flags.writeable
     close(got, ref, 1e-10)
-    dev = maps.makeModelImage(*args, obsFreqGHz=149.6, asDevice=True, **kw)
+    with recording_paint([]) as devLog:
+        dev = maps.makeModelImage(*args, obsFreqGHz=149.6, asDevice=True,
+                                  **kw)
     assert isinstance(dev, torch.Tensor)
-    np.testing.assert_array_equal(dev.numpy(), got)
+    np.testing.assert_array_equal(
+        dev.numpy(), got,
+        err_msg=describe_difference(got, dev.numpy(), hostLog, devLog))
 
 
 def test_make_model_image_outside_the_map_is_none(sky):

@@ -151,41 +151,45 @@ def test_float32_matches_float64():
 
 def _kernel_rings(k, threads, blocks):
     """The ring each (ring block, thread, slot) runs, as
-    csrc/legendre_contract.cu's synthesis_kernel assigns them: warp w of
-    block x takes the k x 32 contiguous rings from (x threads + 32 w) k,
-    its lane i ring 32 s + i of them in slot s."""
+    csrc/legendre_contract.cu's synthesis_kernel and analysis_kernel assign
+    them: warp w of block x takes the k x 32 contiguous rings from
+    (x threads + 32 w) k, its lane i ring 32 s + i of them in slot s."""
     x = np.arange(blocks)[:, None, None]
     t = np.arange(threads)[None, :, None]
     s = np.arange(k)[None, None, :]
     return (x * threads + (t & ~31)) * k + 32 * s + (t & 31)
 
 
-@pytest.mark.parametrize("R", [1, 31, 32, 224, 895, 896, 897, 1100, 4097])
+@pytest.mark.parametrize("R", [1, 31, 32, 224, 895, 896, 897, 1100, 3584,
+                               4097])
 @pytest.mark.parametrize("dtype,k", [(torch.float32, 4), (torch.float64, 2)])
 def test_synthesis_geometry_covers_every_ring_once(R, dtype, k):
-    """The synthesis kernel's launch geometry, at the rings a thread of
-    each type: every ring run by exactly one (ring block, thread, slot),
-    whole warps of at most 1,024 (and the kernel's cap) threads, one block
-    per m up to the cap with idle lanes only in its last warp, and the
-    grid's m dimension within CUDA's 65,535."""
-    for nm in (1, 6001, 12001, 65535):
-        kk, threads, (blocks, gm) = sht.synthesis_geometry(R, nm, dtype)
+    """The Legendre kernel's launch geometry, which synthesis and analysis
+    share, at the rings a thread of each type: every ring run by exactly
+    one (ring block, thread, slot), whole warps of at most 1,024 (and the
+    kernel's cap) threads, one block per m up to the cap's reach (k x the
+    cap) with idle lanes only in its last warp, more blocks (the analysis's
+    planes) beyond it, and the grid's m dimension within CUDA's 65,535."""
+    for nm in (1, 2001, 6001, 12001, 65535):
+        kk, threads, (blocks, gm) = sht.legendre_geometry(R, nm, dtype)
         assert kk == k and gm == nm <= 65535
         assert threads % 32 == 0
-        assert threads <= min(1024, sht.SYNTHESIS_MAX_THREADS)
+        assert threads <= min(1024, sht.MAX_THREADS)
         rings = _kernel_rings(k, threads, blocks)
         live = np.sort(rings[rings < R])
         assert np.array_equal(live, np.arange(R))
         lanes = -(-R // k)
-        assert blocks == -(-lanes // sht.SYNTHESIS_MAX_THREADS)
+        assert blocks == -(-lanes // sht.MAX_THREADS)
+        assert (blocks == 1) == (R <= k * sht.MAX_THREADS)
         if blocks == 1:
             # idle lanes (rings >= R) lie in the last warp
             idle = np.nonzero((rings[0] >= R).any(axis=1))[0]
             assert idle.size == 0 or idle.min() >= threads - 32
     if dtype == torch.float32:
-        assert sht.synthesis_geometry(896, 6001, dtype)[1] == 224
+        assert sht.legendre_geometry(896, 6001, dtype)[1:] == (224, (1, 6001))
+        assert sht.legendre_geometry(3584, 2001, dtype)[2] == (2, 2001)
     with pytest.raises(ValueError):
-        sht.synthesis_geometry(R, 65536, dtype)
+        sht.legendre_geometry(R, 65536, dtype)
 
 
 def _beam(tmp_path):
