@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 -c 'import chip_smoke; chip_smoke.legendre_only()'
                                         # phases 1, 2 and 14a only
+    python3 -c 'import chip_smoke; chip_smoke.realspace_only()'
+                                        # phases 1, 2, 7, 15 and rms_cells
 
 Builds the port's CUDA kernels from the checkout, holds each against its
 plain torch version at the main paths' shapes, then runs the one-tile cluster
@@ -16,7 +18,8 @@ through the ``nemo`` CLI with the DR5 selection-function epilogue (Q fit,
 RMS tables, completeness, mass-limit maps), through ``nemoMass``, and
 through ``nemo -I`` (the source-injection test); then the simulated skies
 on a survey at dec -47: model-noise filtering, the sky-sim contamination
-estimate and ``nemoModel``.
+estimate and ``nemoModel``; then the real-space (DR3-style) search on the
+survey.
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
@@ -30,7 +33,8 @@ non-zero and prints no result):
     order plain, kernel(s), kernel(s), plain, each beside its bound:
     rms_cells' staged and streaming variants (f64 rtol 1e-10, f32 rtol
     1e-4 but for borderline clips, see check_cells) at nT = 1 (the host
-    path) and at the batched step's nT = 16 x 900 x 1536;
+    path), at the batched step's nT = 16 x 900 x 1536 and at the
+    real-space step's nT = 16 x 896 x 1536 (the true shape, unpadded);
     label_components bitwise at 16 x 900 x 1536 on an S/N
     mask, an empty mask and a serpentine that splits at 128 passes, with
     n_iter 128, 4000 and 37; boltzmann_rk4 on the 160-k splice grid at
@@ -104,9 +108,27 @@ non-zero and prints no result):
     tile with 50 clusters, -C --curved-cmb (lmax 12,000), -N 20 --lknee
     2000: seconds by step, one analysis and three syntheses, the CMB's
     variance, the draw's band powers at lmax 6,000 (within 5%) and the
-    noise's white level above the band limit.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+    noise's white level above the band limit;
+ 15 the real-space search on phase 7's survey: the quickstart's two
+    scales as ArnaudModelRealSpaceMatchedFilter with
+    tests/test_tiled_e2e.py's settings (kernel from a Fourier filter on a
+    4 x 4 deg box, cut at 7': 29 x 29; 30' background subtraction;
+    10' edge trim): (a) the step's convolution on one chunk (16 x 2 x 896
+    x 1536 float32, through the FFT) beside its bound and the library's
+    grouped conv2d, within 1e-5 of the peak of the CPU float64
+    convolution of two tiles; (b) the search on the batched
+    engine, cold and warm (seconds, stages, the kernel builds' share of
+    staging, the steps, launches; the two catalogs bitwise the same), and
+    a warm run profiled for its device-busy share; (c) the per-tile host
+    engine on the card, and the CPU float64 port on two tiles, against
+    (b) by phase 9's rule; (d) fitQ with a real-space reference on two
+    tiles: the card's kernels fitted on the card and on the CPU in
+    float64 (rtol 1e-4), the card against the CPU's own float64 kernels
+    and fit (within 1e-4 of the largest Q), and the card's kernels and
+    fit in float64 against the CPU's (rtol 1e-9).
+The last lines are the convolution's JSON record (a library call), the
+kernels' JSON record, the card's name and power limit, and {"ok": true,
+"device": {...}}.
 
 Needs a CUDA device and nvcc; imports no JAX.
 """
@@ -335,9 +357,11 @@ def step_pad():
 
 def check_rms(noise, card):
     """The kernel's two variants against the plain version: the host
-    path's layout (nT = 1, 896 x 1536) and the batched step's (nT = 16,
-    per-tile cells on the padded 900 x 1536), float64 (rtol 1e-10) and
-    float32 (rtol 1e-4: float32 may flip one borderline clip)."""
+    path's layout (nT = 1, 896 x 1536), the Fourier step's (nT = 16,
+    per-tile cells on the padded 900 x 1536) and the real-space step's
+    (nT = 16, the cells on the true 896 x 1536, no FFT padding), float64
+    (rtol 1e-10) and float32 (rtol 1e-4: float32 may flip one borderline
+    clip)."""
     import torch
     dev = torch.device("cuda")
     results = {}
@@ -346,6 +370,9 @@ def check_rms(noise, card):
     pad = step_pad()
     meta = noise.cell_meta_batch([SHAPE] * N_TILES_META, pad, GRID_PIX)
     mtabs, mwindow, mpad = noise.meta_cell_tables(meta, GRID_PIX, pad,
+                                                  N_TILES_META, dev)
+    rmeta = noise.cell_meta_batch([SHAPE] * N_TILES_META, SHAPE, GRID_PIX)
+    rtabs, rwindow, rpad = noise.meta_cell_tables(rmeta, GRID_PIX, SHAPE,
                                                   N_TILES_META, dev)
     for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
         dname = str(dtype).split(".")[-1]
@@ -360,6 +387,11 @@ def check_rms(noise, card):
                             dtype=dtype, device=dev), mpad).contiguous()
         results[("step", dname)] = rms_case(noise, padded, mtabs, mwindow,
                                             rtol, reps=10, plainReps=2)
+        padded = torch.nn.functional.pad(
+            torch.as_tensor(filtered_like_maps(N_TILES_META),
+                            dtype=dtype, device=dev), rpad).contiguous()
+        results[("realspace", dname)] = rms_case(
+            noise, padded, rtabs, rwindow, rtol, reps=10, plainReps=2)
         del padded
     torch.cuda.empty_cache()
     for (layout, dname), (errs, flips, ms, bms, by) in sorted(
@@ -368,7 +400,8 @@ def check_rms(noise, card):
               "streaming %.3e, borderline-clip cells %d and %d of %d; "
               "%.2f of 11 stages a cell; staged %.4f ms, streaming %.4f ms, "
               "plain %.4f ms; bound %.4f ms (%s), staged at %.1f%% of it (%s)"
-              % (layout, dname, mwindow if layout == "step" else window,
+              % (layout, dname, {"step": mwindow, "realspace": rwindow}.get(
+                  layout, window),
                  errs["staged"], errs["streaming"], flips["staged"],
                  flips["streaming"], flips["cells"], flips["mean_stages"],
                  ms["staged"],
@@ -965,7 +998,7 @@ def fixed_snr(cat):
     return np.divide(y, err, out=np.zeros_like(y), where=err != 0)
 
 
-def profile_warm_run(configDict):
+def profile_warm_run(configDict, outName="run_profile"):
     """One more warm batched run under torch.profiler: (wall s, device
     busy s, top device operations, the port's own kernels). Busy time sums
     the device-side events only (kernels and copies, on one stream, do not
@@ -976,7 +1009,7 @@ def profile_warm_run(configDict):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_search(configDict, "cuda", "run_profile")
+        run_search(configDict, "cuda", outName)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, top, ours = device_busy(prof)
@@ -2447,6 +2480,395 @@ def nemo_model_phase(card, device="cuda"):
     return counts
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+# tests/test_tiled_e2e.py's real-space filter settings (the DR3 / E-D56
+# style): the kernel from a Fourier matched filter on a 4 x 4 deg box about
+# the tile centre, cut at 7' (29 x 29 at 0.5'), 30' background subtraction
+RS_PARAMS = {"noiseParams": {"method": "dataMap", "noiseGridArcmin": 40.0,
+                             "RADecSection": "auto", "kernelMaxArcmin": 7.0,
+                             "symmetrize": False,
+                             "matchedFilterClass": "ArnaudModelMatchedFilter"},
+             "bckSub": True, "bckSubScaleArcmin": 30.0, "outputUnits": "yc",
+             "edgeTrimArcmin": 10.0, "GNFWParams": "default",
+             "saveFilteredMaps": False, "saveRMSMap": False,
+             "savePlots": False}
+RS_KERNEL = 29
+RS_CPU_TILES = ("T11", "T12")    # the CPU float64 comparisons' tiles
+# The Q fit's reference scale: with a real-space reference the kernel's
+# calibration template carries no pixel window and the Q models do, so at
+# 0.5' both packages stop on Q[0]/y0 = 0.975 for the quickstart's M2e14
+# z0.4 (0.984 for M4e14 z0.2); this scale gives ~0.992 (the 1% check holds).
+RS_QREF = ("Arnaud_M1e15_z0p1", 1e15, 0.1)
+
+
+def realspace_config(surveyDict, outName, labels=SIM_LABELS, tiles=None,
+                     **over):
+    """Phase 7's survey with ``labels`` as ArnaudModelRealSpaceMatchedFilter
+    (RS_PARAMS), the photometry filter M2e14 z0.4, on the batched engine
+    unless ``over`` says otherwise; ``tiles`` keeps those tiles only."""
+    d = copy.deepcopy(with_filters(surveyDict, labels, **over))
+    d["allFilters"] = {"class": "ArnaudModelRealSpaceMatchedFilter",
+                       "params": copy.deepcopy(RS_PARAMS)}
+    if tiles is not None:
+        d["tileDefinitions"] = [t for t in d["tileDefinitions"]
+                                if t["tileName"] in tiles]
+    d["outputDir"] = os.path.join(WORK, outName)
+    return d
+
+
+def reset_rs_counts():
+    from nemo_tpu_torch.ops import imageops
+    from nemo_tpu_torch.parallel import distribute
+    imageops.convolve2d_reflect_sum_batch.calls = 0
+    distribute.make_realspace_step.calls = 0
+
+
+def read_rs_counts():
+    from nemo_tpu_torch.ops import imageops
+    from nemo_tpu_torch.parallel import distribute
+    return {"conv": imageops.convolve2d_reflect_sum_batch.calls,
+            "step": distribute.make_realspace_step.calls}
+
+
+def conv_bound(T, nf, shape, k, itemsize=4):
+    """The least time for T tiles' band-summed convolution, the maps and
+    kernels read and the sums written once: (ms, by, operations) of the
+    transform route's work (an rfft2 of each map and kernel and an irfft2
+    of each tile at the padded transform size, nominally 2.5 N log2 N
+    operations a real transform of N points, and the band products and
+    sums, 8 operations a half-grid point a band) and (ms, by, operations)
+    of the direct sum's, 2 T nf ny nx k^2."""
+    from nemo_tpu_torch.ops import fourier
+    ny, nx = shape
+    nbytes = itemsize * (T * nf * ny * nx + T * nf * k * k + T * ny * nx)
+    py = fourier.good_fft_size(ny + k - 1)
+    px = fourier.good_fft_size(nx + k - 1)
+    n = py * px
+    fftOps = (2 * T * nf + T) * 2.5 * n * np.log2(n) \
+        + 8.0 * T * nf * py * (px // 2 + 1)
+    directOps = 2.0 * T * nf * ny * nx * k * k
+    return (bound(nbytes, fftOps, "float32") + (fftOps,),
+            bound(nbytes, directOps, "float32") + (directOps,))
+
+
+def check_conv(card, T=16, nf=2, shape=SHAPE, k=RS_KERNEL, reps=5):
+    """Phase 15a: convolve2d_reflect_sum on one chunk (T x nf x ny x nx
+    float32, k x k kernels) as the step runs it (through the FFT), timed
+    with CUDA events in turns with the library's convolution (one grouped
+    cuDNN conv2d, TF32 off, timed only), beside its bound; the largest
+    error against the CPU float64 convolution of two tiles, within 1e-5 of
+    the peak.  Returns the record."""
+    import torch
+    from nemo_tpu_torch import device as device_mod
+    from nemo_tpu_torch.ops import imageops
+    device_mod.policy("cuda")           # TF32 off, as every card run has it
+    rng = np.random.default_rng(SEED + 15)
+    m = torch.as_tensor(rng.normal(0, 30.0, (T, nf) + shape),
+                        dtype=torch.float32, device="cuda")
+    yy, xx = np.mgrid[:k, :k] - k // 2
+    kern = np.exp(-(yy ** 2 + xx ** 2)[None, None]
+                  / (2 * rng.uniform(1.5, 4.0, (T, nf, 1, 1)) ** 2)) \
+        - 0.1 * rng.uniform(0, 1, (T, nf, 1, 1))
+    kern = torch.as_tensor(kern, dtype=torch.float32, device="cuda")
+    calls = imageops.convolve2d_reflect_sum_batch.calls
+
+    def library(mm, kk):
+        """One grouped conv2d, a group a tile with the bands as its input
+        channels; conv2d is a cross-correlation, so the kernels flip."""
+        padded = imageops._reflect_pad(mm, k, k)
+        return torch.nn.functional.conv2d(
+            padded.reshape((1, -1) + padded.shape[-2:]),
+            torch.flip(kk, dims=(-2, -1)), groups=mm.shape[0])[0]
+
+    ms = time_turns({
+        "step": lambda: imageops.convolve2d_reflect_sum_batch(m, kern),
+        "library": lambda: library(m, kern)}, {"step": reps, "library": 2})
+    got = imageops.convolve2d_reflect_sum_batch(m[:2], kern[:2]).cpu()
+    lib = library(m[:2], kern[:2]).cpu()
+    ref = imageops.convolve2d_reflect_sum_batch(m[:2].double().cpu(),
+                                                kern[:2].double().cpu())
+    imageops.convolve2d_reflect_sum_batch.calls = calls
+    peak = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max())
+    errLib = float((lib.double() - ref).abs().max())
+    if err > 1e-5 * peak:
+        raise RuntimeError("convolve2d_reflect_sum on the card: max err "
+                           "%.3e against a %.3e peak" % (err, peak))
+    (bms, by, ops), (dms, dby, dops) = conv_bound(T, nf, shape, k)
+    phase(15, "15a convolve2d_reflect_sum, %d x %d x %d x %d float32, %d x "
+          "%d kernels, through the FFT: %.3f ms; bound %.4f ms (%s: %.3g "
+          "float32 operations), at %.1f%% of it; the library's grouped "
+          "conv2d %.3f ms (the direct sum's bound %.3f ms, %s: %.3g "
+          "operations); max abs err vs CPU float64 on 2 tiles %.3e "
+          "(conv2d %.3e) of a %.3e peak (%s)"
+          % (T, nf, shape[0], shape[1], k, k, ms["step"], bms, by, ops,
+             100 * bms / ms["step"], ms["library"], dms, dby, dops, err,
+             errLib, peak, card))
+    return {"ms": ms["step"], "library_ms": ms["library"], "bound_ms": bms,
+            "bound_by": by, "operations": ops, "direct_bound_ms": dms,
+            "direct_operations": dops, "max_abs_err": err,
+            "library_max_abs_err": errLib, "peak": peak}
+
+
+def rs_budget(outName):
+    """Summed chunk budgets of a real-space batched run, with the staging
+    worker's kernel-build and staging seconds."""
+    with open(os.path.join(WORK, outName, "diagnostics",
+                           "chunk_budgets.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    out = {k: sum(r[k] for r in recs) for k in (
+        "stageWait", "upload", "step", "download", "consume", "hostOther",
+        "kernelBuild", "staging")}
+    out["nTiles"] = [r["nTiles"] for r in recs]
+    out["devices"] = sorted({r["device"] for r in recs})
+    return out
+
+
+def same_catalog(a, b):
+    """The largest difference of two catalogs' positions, amplitudes and
+    S/N, row for row by name (0.0: bitwise the same)."""
+    if sorted(a["name"]) != sorted(b["name"]):
+        return float("inf")
+    ia, ib = np.argsort(np.asarray(a["name"])), np.argsort(np.asarray(
+        b["name"]))
+    return max(float(np.max(np.abs(np.asarray(a[k], dtype=float)[ia]
+                                   - np.asarray(b[k], dtype=float)[ib])))
+               for k in ("RADeg", "decDeg", "y_c", "fixed_y_c", "SNR"))
+
+
+def realspace_phase(noise, detect, card, surveyDict, truth, device="cuda"):
+    """Phase 15: the real-space search (the DR3 / E-D56 style) on phase 7's
+    survey: (a) the convolution on one chunk; (b) the nemo search on the
+    batched engine, cold and warm, and once more profiled; (c) the per-tile
+    host engine on the card, and the CPU float64 port on two tiles,
+    against (b) by phase 9's rule; (d) fitQ with a real-space reference on
+    two tiles, the card (float32, and float64) against the CPU float64
+    run.
+    Returns (the 15a record, the warm run's counts)."""
+    import torch
+    from nemo_tpu_torch import filters, startup
+    from nemo_tpu_torch.models import qfit
+    onCard = device == "cuda"
+    conv = check_conv(card) if onCard else None
+    nTiles = len(surveyDict["tileDefinitions"])
+
+    runs = {}
+    for tag in ("cold", "warm"):
+        outName = "rs_%s" % tag
+        reset_rs_counts()
+        cat, secs, bud, counts = batched_run(
+            realspace_config(surveyDict, outName), outName, noise, detect,
+            device)
+        counts.update(read_rs_counts())
+        bud = rs_budget(outName)
+        runs[tag] = (cat, secs, bud, counts)
+        # one step (one convolution) a label over all 16 tiles; rms_cells
+        # launched by each step and each kernel build's sub-region filter
+        # on the card, the plain version on the CPU
+        launched = counts["rms_plain"] if not onCard else counts["rms_cells"]
+        if counts["conv"] != len(SIM_LABELS) or counts["step"] != \
+                len(SIM_LABELS) or launched < len(SIM_LABELS) or (
+                    counts["rms_plain"] if onCard else counts["rms_cells"]):
+            raise RuntimeError("real-space %s run: counts %s" % (tag, counts))
+        if bud["nTiles"] != [nTiles] * len(SIM_LABELS) or bud["devices"] \
+                != [str(torch.device(device, 0) if onCard
+                        else torch.device(device))]:
+            raise RuntimeError("real-space %s run: budget %s" % (tag, bud))
+        phase(15, "15b nemo --device %s, batched engine, real-space %s, %d "
+              "tiles x %d scales: %.2f s (staging wait %.2f + upload %.2f, "
+              "steps %.3f, downloads %.2f, host catalog %.2f, other host "
+              "%.2f; the staging worker's stagings %.2f s, of it kernel "
+              "builds %.2f s = %.1f%%), %d objects; launches %s (%s)"
+              % (device, tag, nTiles, len(SIM_LABELS), secs,
+                 bud["stageWait"], bud["upload"], bud["step"],
+                 bud["download"], bud["consume"], bud["hostOther"],
+                 bud["staging"], bud["kernelBuild"],
+                 100 * bud["kernelBuild"] / bud["staging"], len(cat),
+                 json.dumps(counts), card))
+    cat, secs, bud, counts = runs["warm"]
+    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    stages = dict(GLOBAL_TIMER.stages)
+    diff = same_catalog(runs["cold"][0], cat)
+    if diff != 0.0:
+        raise RuntimeError("two real-space card runs differ by %.3e" % diff)
+    recovered = int(np.sum(match(truth, cat, 1.0) >= 0))
+    if recovered < 0.9 * len(truth["y_c"]):
+        raise RuntimeError("real-space run recovered %d clusters"
+                           % recovered)
+    phase(15, "15b warm run: stages (s) %s; %d/%d clusters within 1'; the "
+          "cold and warm catalogs bitwise the same (%d rows) (%s)"
+          % (json.dumps({k: round(v, 3) for k, v in sorted(stages.items())}),
+             recovered, len(truth["y_c"]), len(cat), card))
+    if onCard:
+        wall, busy, top, _ = profile_warm_run(
+            realspace_config(surveyDict, "rs_profile"), "rs_profile")
+        phase(15, "15b profiled warm run: %.3f s wall, device busy %.3f s "
+              "(%.1f%%); top device ops (name, ms, calls): %s (%s)"
+              % (wall, busy, 100 * busy / wall, json.dumps(top), card))
+
+    hostCat, hostSecs, _ = run_search(
+        realspace_config(surveyDict, "rs_host", useDeviceBatching=False),
+        device, "rs_host")
+    n, sep, dy = compare_runs(truth, cat, hostCat)
+    phase(15, "15c per-tile host engine on %s: %.2f s, %d objects; %d "
+          "clusters at fixed_SNR >= 5 in either run found by both, max "
+          "offset %.4f', max |fixed_y_c ratio - 1| %.2e against 15b (%s)"
+          % (device, hostSecs, len(hostCat), n, sep, dy, card))
+    if n < 0.5 * len(truth["y_c"]):
+        raise RuntimeError("too few clusters compared (%d)" % n)
+    sub = realspace_config(surveyDict, "rs_cpu", tiles=RS_CPU_TILES,
+                           useDeviceBatching=False)
+    subTruth = {k: np.concatenate([in_tile(truth, sub, t)[k]
+                                   for t in RS_CPU_TILES]) for k in truth}
+    cpuCat, cpuSecs, _ = run_search(sub, "cpu", "rs_cpu")
+    n, sep, dy = compare_runs(subTruth, cat, cpuCat)
+    phase(15, "15c CPU float64, per-tile engine, tiles %s: %.2f s; %d "
+          "clusters at fixed_SNR >= 5 in either run found by both, max "
+          "offset %.4f', max |fixed_y_c ratio - 1| %.2e against 15b (%s)"
+          % ("+".join(RS_CPU_TILES), cpuSecs, n, sep, dy, card))
+    if n < 0.5 * len(subTruth["y_c"]):
+        raise RuntimeError("too few clusters compared (%d)" % n)
+
+    def fit_q(dev, tag, kernelsOf=None, x64=False):
+        """Build the reference's kernels on ``dev`` (in float64 on the card
+        with ``x64``; or read those of the config ``kernelsOf``, as phase
+        11 reads the card's filters) and fit Q there; returns (config,
+        {tile: Q}, kernel s, fitQ s)."""
+        label, M, z = RS_QREF
+        d = realspace_config(surveyDict, "rs_q_" + tag, labels=(),
+                             tiles=RS_CPU_TILES, photFilter=label)
+        d["mapFilters"] = [{"label": label,
+                            "params": {"M500MSun": M, "z": z}}]
+        config = startup.NemoConfig(startup.parseConfigDict(d), device=dev,
+                                    x64=x64, writeTileInfo=True)
+        f = config.parDict["mapFilters"][0]
+        t0 = time.perf_counter()
+        if kernelsOf is not None:
+            config.diagnosticsDir = kernelsOf.diagnosticsDir
+        else:
+            for tileName in config.tileNames:
+                fObj = filters.getFilterClass(f["class"])(
+                    f["label"], config.unfilteredMapsDictList, f["params"],
+                    tileName=tileName, diagnosticsDir=config.diagnosticsDir,
+                    selFnDir=config.selFnDir, policy=config.policy)
+                fObj.buildKernel(fObj._resolveRADecSection())
+        tKernels = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qfit.fitQ(config)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return (config,
+                qfit_tables(os.path.join(config.selFnDir, "QFit.fits")),
+                tKernels, time.perf_counter() - t0)
+
+    def max_diff(a, b):
+        """(max |a/b - 1|, max |a - b| / max b, the b where a/b is worst)
+        over the tiles."""
+        if sorted(a) != sorted(b) or len(a) != len(RS_CPU_TILES):
+            raise RuntimeError("fitQ tiles %s / %s" % (sorted(a), sorted(b)))
+        rel = {t: np.abs(a[t] / b[t] - 1) for t in b}
+        worst = max(b, key=lambda t: rel[t].max())
+        return (max(float(r.max()) for r in rel.values()),
+                max(float(np.max(np.abs(a[t] - b[t]))) for t in b)
+                / max(float(q.max()) for q in b.values()),
+                float(b[worst][int(np.argmax(rel[worst]))]))
+
+    # the card's float32 kernels fitted on the card and on the CPU in
+    # float64 (phase 11's comparison: one set of kernels, two fits); the
+    # CPU's own float64 kernels and fit, each Q's difference taken
+    # relative to the table's largest (float32 kernels move every Q by up
+    # to ~5e-5 of the largest, the smallest, ~4e-4 of the largest, by
+    # ~1.4e-4 of itself); and the card's kernels and fit in float64
+    # against the CPU's own, which shows that the last difference is the
+    # float32 round-off (~1e-10 in float64)
+    cardConfig, qCard, kCard, sCard = fit_q(device, device)
+    _, qCpu, _, sCpu = fit_q("cpu", "cpu", kernelsOf=cardConfig)
+    _, qOwn, kOwn, sOwn = fit_q("cpu", "cpu_own")
+    _, q64, k64, s64 = fit_q(device, device + "_x64", x64=True)
+    rel = max_diff(qCard, qCpu)[0]
+    relOwn, ofMaxOwn, atOwn = max_diff(qCard, qOwn)
+    rel64, ofMax64, at64 = max_diff(q64, qOwn)
+    phase(15, "15d fitQ, real-space reference %s, tiles %s, %d Q values a "
+          "tile (%.3g to %.3g): %s kernels %.2f s + fitQ %.2f s; the CPU "
+          "float64 fit of the same kernels %.2f s, max rel diff %.2e "
+          "(tolerance 1e-4); the CPU's own float64 kernels %.2f s + fitQ "
+          "%.2f s: max diff %.2e of the largest Q (tolerance 1e-4), %.2e "
+          "of its own (at Q %.3g); the %s kernels and fit in float64 %.2f "
+          "+ %.2f s: max diff %.2e of the largest Q, %.2e of its own (at Q "
+          "%.3g; tolerance 1e-9) (%s)"
+          % (RS_QREF[0], "+".join(RS_CPU_TILES), len(qOwn[RS_CPU_TILES[0]]),
+             min(q.min() for q in qOwn.values()),
+             max(q.max() for q in qOwn.values()), device, kCard, sCard, sCpu,
+             rel, kOwn, sOwn, ofMaxOwn, relOwn, atOwn, device, k64, s64,
+             ofMax64, rel64, at64, card))
+    if rel > 1e-4 or ofMaxOwn > 1e-4 or rel64 > 1e-9:
+        raise RuntimeError("real-space fitQ: card and CPU differ by %.3e "
+                           "(the same kernels), %.3e of the largest Q (each "
+                           "its own), %.3e (float64)"
+                           % (rel, ofMaxOwn, rel64))
+    return conv, counts
+
+
+def conv_row(conv, counts):
+    """The conv line's record of the real-space step's convolution: torch
+    FFT ops (cuFFT), not a hand-written kernel; the plain version is the
+    route itself."""
+    return {
+        "name": "convolve2d_reflect_sum_batch",
+        "route": "torch.fft (cuFFT; torch ops, not a hand-written kernel)",
+        "source": "nemo_tpu_torch/ops/imageops.py",
+        "replaces": "nemo_tpu/ops/imageops.py:201 (XLA "
+                    "conv_general_dilated, not a TPU kernel)",
+        "launches": counts["conv"], "max_abs_err": conv["max_abs_err"],
+        "ms": conv["ms"], "plain_ms": conv["ms"],
+        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+        "library_ms": conv["library_ms"],
+        "share_of_bound": conv["bound_ms"] / conv["ms"],
+        "operations": conv["operations"],
+        "bound_ms_direct_sum": conv["direct_bound_ms"],
+        "operations_direct_sum": conv["direct_operations"],
+        "library_max_abs_err": conv["library_max_abs_err"],
+        "shape": "16 x 2 x %d x %d float32, %d x %d kernels; library_ms is "
+                 "one grouped cuDNN conv2d (TF32 off)"
+                 % (SHAPE[0], SHAPE[1], RS_KERNEL, RS_KERNEL)}
+
+
+def realspace_only():
+    """Phases 1, 2 (rms_cells and label_components), rms_cells against its
+    plain version (phase 3's first check), 7 and 15 alone, for a
+    change on the real-space path; prints the conv line and the card, no
+    ``ok`` line.  ``python3 -c 'import chip_smoke;
+    chip_smoke.realspace_only()'``"""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, ROOT)
+    from nemo_tpu_torch import cuda_build
+    from nemo_tpu_torch.ops import detect, noise
+    tStart = time.perf_counter()
+    card = nvidia_smi()
+    phase(1, "card: %s | torch %s | CUDA %s" % (card, torch.__version__,
+                                                torch.version.cuda))
+    sources = ("rms_cells.cu", "label_components.cu")
+    cuda_build.build(sources)
+    noise.load_kernel()
+    detect.load_label_kernel()
+    phase(2, "build: %s in %.2f s" % (", ".join(sources),
+                                      time.perf_counter() - tStart))
+    check_rms(noise, card)
+    shutil.rmtree(WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    surveyDict, truth = survey_inputs(os.path.join(WORK, "survey"))
+    phase(7, "survey inputs in %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    conv, counts = realspace_phase(noise, detect, card, surveyDict, truth)
+    print(json.dumps({"conv": [conv_row(conv, counts)]}))
+    print("phase 15 %.1f s, total %.1f s" % (time.perf_counter() - t0,
+                                            time.perf_counter() - tStart))
+    print(card)
+
+
 def legendre_ptxas(cuda_build, sht):
     """Phase 2: ptxas's registers and spills of each Legendre kernel:
     synthesis and analysis (4 rings a thread in float32, 2 in float64)."""
@@ -2617,9 +3039,15 @@ def main():
     _, _, simRuns = sims_search_phase(noise, detect, card)
     contamCounts = contamination_phase(noise, detect, card, simRuns)
     modelCounts = nemo_model_phase(card)
+    t0 = time.perf_counter()
+    conv, rsCounts = realspace_phase(noise, detect, card, surveyDict,
+                                     surveyTruth)
+    phase(15, "phase 15 in %.1f s" % (time.perf_counter() - t0))
 
     errs, flips, ms, bms, by = rms[("step", "float32")]
     ms1 = rms[("nT1", "float32")][2]
+    errsRs, _, msRs, bmsRs, _ = rms[("realspace", "float32")]
+    print(json.dumps({"conv": [conv_row(conv, rsCounts)]}))
     print(json.dumps({"kernels": [{
         "name": "rms_cells", "route": "cuda",
         "source": "nemo_tpu_torch/csrc/rms_cells.cu",
@@ -2637,8 +3065,13 @@ def main():
         "launches_one_tile": launches,
         "launches_nemo_I": injCounts[0]["rms_cells"],
         "launches_injection_reruns": injCounts[1]["rms_cells"],
+        "launches_realspace_run": rsCounts["rms_cells"],
         "ms_nT1": ms1["staged"],
         "ms_nT1_streaming": ms1["streaming"], "plain_ms_nT1": ms1["plain"],
+        "ms_realspace_layout": msRs["staged"],
+        "plain_ms_realspace_layout": msRs["plain"],
+        "bound_ms_realspace_layout": bmsRs,
+        "max_abs_err_realspace_layout": errsRs["staged"],
     }, {
         "name": "label_components", "route": "cuda",
         "source": "nemo_tpu_torch/csrc/label_components.cu",

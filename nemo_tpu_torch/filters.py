@@ -6,6 +6,11 @@ directly:
 
 * :class:`MapFilter` - base class (geometry, beams, noise-map estimation);
 * :class:`MatchedFilter` - Fourier-space multi-frequency matched filter;
+* :class:`RealSpaceMatchedFilter` - its truncated real-space kernel
+  variant (the DR3 / E-D56 style): the kernel comes from a Fourier matched
+  filter built on a sub-region, cut at ``kernelMaxArcmin`` and applied to
+  the whole tile at its true shape by a reflect-boundary convolution
+  (through the FFT);
 * the Beam/ArnaudModel/BattagliaModel template mixins and the concrete
   classes, resolved through :data:`FILTER_REGISTRY`.
 
@@ -22,9 +27,6 @@ CMB plus white noise drawn per band (``model``, through ``ops/grf.py`` or,
 above ``maps.CURVED_SKY_DEC_DEG``, ``ops/sht.py`` and its Legendre kernel),
 or from the data floored by the lensed CMB power (``max(dataMap,CMB)``).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the real-space matched filter and filters applied to a map of another
-shape (``reshapeFilter``).
 """
 
 import os
@@ -40,8 +42,6 @@ from .ops import noise as noise_ops
 from .ops import solve as solve_ops
 from .utils import fits as nfits
 from .utils.timing import GLOBAL_TIMER
-
-_REST_TODO = "not ported yet (ROADMAP.md queue 1, item 11: the rest)"
 
 
 # ----------------------------------------------------------------------------
@@ -793,9 +793,32 @@ class MatchedFilter(MapFilter):
             raise ValueError("outputUnits must be 'yc' or 'uK'")
 
     def reshapeFilter(self, shape):
-        raise NotImplementedError(
-            "applying a filter to a map of another shape (reshapeFilter) "
-            "is " + _REST_TODO)
+        """The filter interpolated onto another map's rfft half grid in
+        l-space (host float64): a regular-grid linear interpolation on the
+        fftshifted (ascending) l axes, zero outside the filter's grid."""
+        from scipy.interpolate import RegularGridInterpolator
+        filtShape = self._filtShape()
+        if len(shape) == 2:
+            shape = (filtShape[0], shape[0], shape[1])
+        # the filter lives on the padded tile's half grid: ly in fftfreq
+        # order (shifted for the interpolation), lx already ascending
+        lyIn, lxIn = fourier.rlaxes(
+            (filtShape[-2], 2 * (filtShape[-1] - 1)), self.pixScalesRad)
+        lyOut, lxOut = fourier.rlaxes(
+            (shape[-2], 2 * (shape[-1] - 1)), self.pixScalesRad)
+        grid_y, grid_x = np.meshgrid(np.fft.fftshift(lyOut), lxOut,
+                                     indexing="ij")
+        pts = np.stack([grid_y.ravel(), grid_x.ravel()], axis=-1)
+        filtHost = self._filtHost()
+        out = np.zeros(shape)
+        for i in range(filtHost.shape[0]):
+            interp_i = RegularGridInterpolator(
+                (np.fft.fftshift(lyIn), lxIn),
+                np.fft.fftshift(filtHost[i], axes=0),
+                bounds_error=False, fill_value=0.0)
+            out[i] = np.fft.ifftshift(
+                interp_i(pts).reshape(shape[-2:]), axes=0)
+        return out
 
     def applyFilter(self, mapDataToFilter, returnDevice=False):
         """Apply the filter; accepts real map cubes (apodised and FFT'd
@@ -815,10 +838,14 @@ class MatchedFilter(MapFilter):
             padShape = (fourier.good_fft_size(outShape[0]),
                         fourier.good_fft_size(outShape[1]))
             fMaps = _fft_apod_stack(data, apodM, padShape=padShape)
-        if tuple(fMaps.shape[-3:]) != self._filtShape():
-            self.reshapeFilter(fMaps.shape[-3:])
+        if tuple(fMaps.shape[-3:]) == self._filtShape():
+            filt, padShape = self.filt, self.padShape
+        else:
+            # another map's grid: the filter interpolated onto it
+            filt = P.tensor(self.reshapeFilter(tuple(fMaps.shape[-3:])))
+            padShape = (fMaps.shape[-2], 2 * (fMaps.shape[-1] - 1))
         filteredDev = fourier.crop_to(_apply_filter_fourier(
-            fMaps, self.filt, self.padShape), outShape)
+            fMaps, filt, padShape), outShape)
         if returnDevice:
             return filteredDev * self.signalNorm
         filteredMap = filteredDev.cpu().numpy()
@@ -833,11 +860,324 @@ class MatchedFilter(MapFilter):
 
 # ----------------------------------------------------------------------------
 class RealSpaceMatchedFilter(MapFilter):
-    """Truncated real-space kernel matched filter: not ported yet."""
+    """Truncated real-space kernel matched filter.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the real-space matched filter is "
-                                  + _REST_TODO)
+    The kernel is built from a Fourier matched filter constructed in a
+    sub-region, transformed to real space and cut at ``kernelMaxArcmin``
+    (host float64); the whole tile is filtered at its true shape by a
+    reflect-boundary convolution on the policy's device, one band at a
+    time, and the bands summed.
+    """
+
+    def loadFilter(self):
+        """Read the kernel, SIGNORM, BCKSCALE and the RW* weights from the
+        kernel FITS."""
+        data, header = nfits.read_image(self.filterFileName)
+        self.kern2d = np.asarray(data, dtype=np.float64)
+        self.signalNorm = header["SIGNORM"]
+        self.bckSubScaleArcmin = header.get("BCKSCALE", 0)
+        self.fRelWeights = {}
+        for i in range(1, 10):
+            if "RW%d_GHZ" % i in header:
+                self.fRelWeights[header["RW%d_GHZ" % i]] = header["RW%d" % i]
+
+    def buildKernel(self, RADecSection):
+        """Build (or load, when its FITS exists) the kernel, the background
+        scale and the signal norm and fRel weights."""
+        if self.filterFileName is not None and \
+                os.path.exists(self.filterFileName):
+            return self.loadFilter()
+
+        # the Fourier MF on the kernel sub-region, from the preprocessed
+        # tile maps clipped to RADecSection
+        from .utils.wcs import clipUsingRADecCoords
+        RAMin, RAMax, decMin, decMax = RADecSection
+        kernelDictList = []
+        for mapDict in self.unfilteredMapsDictList:
+            kd = {k: mapDict[k] for k in mapDict.keys()
+                  if k not in ("data", "weights", "wcs", "surveyMask",
+                               "pointSourceMask", "flagMask")}
+            clip = clipUsingRADecCoords(np.asarray(mapDict["data"]),
+                                        mapDict["wcs"], RAMin, RAMax,
+                                        decMin, decMax)
+            kd["data"] = clip["data"]
+            kd["wcs"] = clip["wcs"]
+            for key in ("weights", "surveyMask", "pointSourceMask",
+                        "flagMask"):
+                kd[key] = clipUsingRADecCoords(
+                    np.asarray(mapDict[key]), mapDict["wcs"], RAMin, RAMax,
+                    decMin, decMax)["data"]
+            if kd["data"].size == 0:
+                raise ValueError("Kernel RADecSection clip is empty - check "
+                                 "noiseParams RADecSection")
+            kernelDictList.append(kd)
+        mfClassName = self.params["noiseParams"].get(
+            "matchedFilterClass",
+            self.__class__.__name__.replace("RealSpaceMatchedFilter",
+                                            "MatchedFilter"))
+        mfClass = getFilterClass(mfClassName)
+        kernelLabel = "realSpaceKernel_%s" % self.label
+        subDir = os.path.join(self.diagnosticsDir,
+                              kernelLabel + "#" + self.tileName)
+        os.makedirs(os.path.join(subDir, "diagnostics", self.tileName),
+                    exist_ok=True)
+        os.makedirs(os.path.join(subDir, "selFn", self.tileName),
+                    exist_ok=True)
+        matchedFilter = mfClass(kernelLabel, kernelDictList, self.params,
+                                tileName=self.tileName,
+                                diagnosticsDir=os.path.join(subDir,
+                                                            "diagnostics"),
+                                selFnDir=os.path.join(subDir, "selFn"),
+                                policy=self.policy)
+        matchedFilter.buildAndApply()
+
+        kernelMaxArcmin = self.params["noiseParams"]["kernelMaxArcmin"]
+        prof, arcminRange = matchedFilter.makeRealSpaceFilterProfile()
+        rIndex = np.where(arcminRange > kernelMaxArcmin)[0][0]
+        mask = arcminRange < kernelMaxArcmin
+
+        # profile2d in float64 on the host, so that the device's float32
+        # filter cannot move the window below by a pixel
+        if self.params["noiseParams"].get("symmetrize", False):
+            rRadians = np.radians(arcminRange / 60.0)
+            radMap = fourier.radial_distance_map(
+                matchedFilter.padShape, matchedFilter.pixScalesRad)
+            profile2d = np.stack([
+                np.interp(radMap, rRadians[mask], prof[i, mask], right=0.0)
+                for i in range(prof.shape[0])])
+        else:
+            profile2d = np.fft.fftshift(
+                np.fft.irfft2(matchedFilter._filtHost(),
+                              s=matchedFilter.padShape), axes=(-2, -1))
+
+        # an odd window around the |profile| maximum
+        z, yy, xx = np.where(np.abs(profile2d) == np.abs(profile2d).max())
+        y, x = yy[0], xx[0]
+        yMin, yMax = y - rIndex, y + rIndex
+        xMin, xMax = x - rIndex, x + rIndex
+        if (yMax - yMin) % 2 == 0:
+            yMin += 1
+        if (xMax - xMin) % 2 == 0:
+            xMin += 1
+        self.kern2d = profile2d[:, yMin:yMax, xMin:xMax]
+
+        if "bckSubScaleArcmin" in self.params:
+            self.bckSubScaleArcmin = self.params["bckSubScaleArcmin"]
+        else:
+            func = np.min if prof[0, 0] > 0 else np.max
+            self.bckSubScaleArcmin = float(
+                arcminRange[prof[0] == func(prof[0])][0])
+
+        # signal-norm calibration on the full-tile geometry
+        signalMaps = []
+        y0 = 2e-4
+        for mapDict in self.unfilteredMapsDictList:
+            if self.params["outputUnits"] == "yc":
+                if mapDict["obsFreqGHz"] is not None:
+                    amp = sz.convertToDeltaT(y0, mapDict["obsFreqGHz"])
+                else:
+                    amp = y0
+                signalMaps.append(np.asarray(self.makeSignalTemplateMap(
+                    mapDict["beamFileName"], amplitude=amp)))
+            else:
+                signalMaps.append(np.asarray(self.makeSignalTemplateMap(
+                    mapDict["beamFileName"])))
+        signalMaps = np.stack(signalMaps)
+        filteredSignal = self.applyFilter(signalMaps, calcFRelWeights=True)
+        if self.params["outputUnits"] == "yc":
+            self.signalNorm = y0 / filteredSignal.max()
+        else:
+            self.signalNorm = 1.0 / filteredSignal.max()
+
+        if self.filterFileName is not None:
+            header = nfits.Header()
+            header["SIGNORM"] = float(self.signalNorm)
+            if self.params.get("bckSub"):
+                header["BCKSCALE"] = float(self.bckSubScaleArcmin)
+            for count, key in enumerate(self.fRelWeights, start=1):
+                header["RW%d_GHZ" % count] = key
+                header["RW%d" % count] = float(self.fRelWeights[key])
+            os.makedirs(os.path.dirname(self.filterFileName), exist_ok=True)
+            nfits.write_image(self.filterFileName,
+                              np.asarray(self.kern2d, dtype=np.float32),
+                              header)
+
+        if self.diagnosticsDir is not None:
+            self._saveKernelProfilePlot(prof, arcminRange, mask)
+
+    def _saveKernelProfilePlot(self, prof, arcminRange, mask):
+        """Kernel-profile diagnostics, written with every kernel build:
+        the plotted data as ``filterProf1D_<label>#<tile>.npz`` and, where
+        matplotlib is installed, the smoothed per-band 1-d profile plot
+        ``filterPlot1D_<label>#<tile>.pdf`` (without it the plot is skipped
+        with a warning; the kernel and its FITS never depend on it)."""
+        from scipy import interpolate as sinterp
+        os.makedirs(self.diagnosticsDir, exist_ok=True)
+        np.savez(os.path.join(
+            self.diagnosticsDir,
+            "filterProf1D_%s#%s.npz" % (self.label, self.tileName)),
+            arcminRange=arcminRange, prof=prof, mask=mask,
+            bckSubScaleArcmin=self.bckSubScaleArcmin)
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            from . import plotSettings
+            plotSettings.update_rcParams()
+        except Exception as exc:  # plotting must never kill a survey run
+            print("... WARNING: kernel-profile plot of %s#%s skipped: %s"
+                  % (self.label, self.tileName, exc))
+            return
+        fig = plt.figure(figsize=(9, 6.5))
+        plt.axes([0.13, 0.12, 0.86, 0.86])
+        for row, mapDict in zip(prof, self.unfilteredMapsDictList):
+            tck = sinterp.splrep(arcminRange[mask], row[mask])
+            plotRange = np.linspace(0, arcminRange[mask].max(), 1000)
+            if mapDict.get("obsFreqGHz") is not None:
+                lineLabel = "%d GHz" % mapDict["obsFreqGHz"]
+            else:
+                lineLabel = "yc"
+            plt.plot(plotRange, sinterp.splev(plotRange, tck), "-",
+                     label=lineLabel)
+        plt.xlabel("$\\theta$ (arcmin)")
+        plt.ylabel("Amplitude")
+        plt.legend()
+        plt.xlim(0, arcminRange[mask].max())
+        if self.params.get("bckSub"):
+            plt.plot([self.bckSubScaleArcmin] * 3,
+                     np.linspace(-1.2, 1.2, 3), "k--")
+        plt.ylim(-1.2, 0.2)
+        plt.savefig(os.path.join(
+            self.diagnosticsDir,
+            "filterPlot1D_%s#%s.pdf" % (self.label, self.tileName)))
+        plt.close(fig)
+
+    def _resolveRADecSection(self):
+        """Kernel sub-region: the configured RADecSection, a per-tile box
+        from the config's ``tileNoiseRegions`` (read back from the
+        NRAMIN/NRAMAX/NDEMIN/NDEMAX tile headers), or an auto 4 x 4 deg box
+        about the tile centre."""
+        noiseParams = self.params["noiseParams"]
+        if noiseParams["RADecSection"] == "tileNoiseRegions":
+            h = self.wcs.header
+            try:
+                return [h["NRAMIN"], h["NRAMAX"], h["NDEMIN"], h["NDEMAX"]]
+            except KeyError:
+                raise ValueError(
+                    "noiseParams RADecSection is 'tileNoiseRegions' but "
+                    "tile %s carries no NRAMIN/NRAMAX/NDEMIN/NDEMAX "
+                    "headers - add a top-level tileNoiseRegions section "
+                    "to the config (see the reference's "
+                    "examples/sources/PS_f220_nightOnly.yml)"
+                    % self.tileName)
+        if noiseParams["RADecSection"] == "auto":
+            cRA, cDec = self.wcs.getCentreWCSCoords()
+            half = 2.0
+            return [cRA - half / np.cos(np.radians(cDec)),
+                    cRA + half / np.cos(np.radians(cDec)),
+                    cDec - half, cDec + half]
+        return noiseParams["RADecSection"]
+
+    def buildAndApply(self, useCachedFilter=False, undoPixelWindow=False):
+        P = self.policy
+        params = self.params
+        self._undoneWindow = False
+        surveyMask = np.asarray(self.unfilteredMapsDictList[0]["surveyMask"])
+        psMask = np.asarray(self.unfilteredMapsDictList[0]["pointSourceMask"])
+
+        with GLOBAL_TIMER.stage("buildKernel"):
+            self.buildKernel(self._resolveRADecSection())
+
+        dataStack = np.stack([np.asarray(m["data"], dtype=np.float64)
+                              for m in self.unfilteredMapsDictList])
+        validHost = (dataStack != 0).all(axis=0)
+        if not validHost.all():
+            # ragged data coverage: the coverage-edge trim (no FFT here,
+            # so the kernel's compact support needs no taper)
+            _, keep = raggedEdgeArrays(validHost, self.apodPix,
+                                       self._trimSizePix(),
+                                       gridPix=self._noiseGridPix())
+            surveyMask = surveyMask * keep
+        filteredMap = self.applyFilter(dataStack)
+
+        filteredMap = filteredMap * psMask
+        RMSMap = self.makeNoiseMap(filteredMap)
+        validMask = RMSMap > 0
+        SNMap = np.array(filteredMap)
+        SNMap[validMask] = SNMap[validMask] / RMSMap[validMask]
+
+        if params["outputUnits"] == "yc":
+            mapUnits = "yc"
+            combinedObsFreqGHz = "yc"
+            beamSolidAngle_nsr = 0.0
+        else:
+            combinedObsFreqGHz = float(list(self.beamSolidAnglesDict)[0])
+            mapUnits = "uK"
+            beamSolidAngle_nsr = self.beamSolidAnglesDict[combinedObsFreqGHz]
+
+        trimSizePix = self._trimSizePix()
+        if trimSizePix > 0:
+            edgeCheck = imageops.minimum_filter(
+                torch.abs(P.tensor(filteredMap) + P.tensor(1 - psMask)),
+                trimSizePix).cpu().numpy()
+            edgeCheck = (edgeCheck > 0).astype(float)
+        else:
+            edgeCheck = np.ones(filteredMap.shape)
+        filteredMap = filteredMap * edgeCheck
+        surveyMask = edgeCheck * surveyMask * psMask
+
+        apodMask = fourier.apod_mask(filteredMap.shape,
+                                     self.apodPix).numpy() == 1
+        surveyMask = surveyMask * apodMask
+        SNMap = SNMap * surveyMask
+        SNMap[np.isnan(SNMap)] = 0.0
+        RMSMap = RMSMap * surveyMask
+
+        if params.get("saveRMSMap"):
+            RMSFileName = os.path.join(
+                self.selFnDir, self.tileName,
+                "RMSMap_%s#%s.fits" % (self.label, self.tileName))
+            os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
+            nfits.write_image(RMSFileName, RMSMap, self.wcs.header,
+                              compressionType="RICE_1")
+
+        return {"data": np.asarray(filteredMap), "wcs": self.wcs,
+                "obsFreqGHz": combinedObsFreqGHz,
+                "SNMap": np.asarray(SNMap), "surveyMask": surveyMask,
+                "flagMask": self.flagMask, "mapUnits": mapUnits,
+                "beamSolidAngle_nsr": beamSolidAngle_nsr, "label": self.label,
+                "tileName": self.tileName}
+
+    def applyFilter(self, mapDataToFilter, calcFRelWeights=False):
+        """Background subtraction per band (``bckSub``), then each band
+        convolved with its kernel on the policy's device and the bands
+        summed; host numpy in (or a tensor) and out.  With
+        ``calcFRelWeights`` every band's weight is read at the pixel where
+        the band sum peaks."""
+        P = self.policy
+        if isinstance(mapDataToFilter, torch.Tensor):
+            mapDataToFilter = mapDataToFilter.cpu().numpy()
+        filtered = np.asarray(mapDataToFilter)
+        if self.params.get("bckSub") and self.bckSubScaleArcmin > 0:
+            from . import maps as maps_mod
+            filtered = np.stack([maps_mod.subtractBackground(
+                band, self.wcs, smoothScaleDeg=self.bckSubScaleArcmin / 60.0,
+                policy=P) for band in filtered])
+
+        out = torch.stack([
+            imageops.convolve2d_reflect(P.tensor(band), P.tensor(kern))
+            for band, kern in zip(filtered, self.kern2d)]).cpu().numpy()
+
+        if calcFRelWeights:
+            total2d = out.sum(axis=0)
+            maxIndex = np.argmax(total2d)
+            totalSignal = total2d.flatten()[maxIndex]
+            self.fRelWeights = {}
+            for plane, mapDict in zip(out, self.unfilteredMapsDictList):
+                self.fRelWeights[mapDict["obsFreqGHz"]] = float(
+                    plane.flatten()[maxIndex] / totalSignal)
+
+        return out.sum(axis=0) * self.signalNorm
 
 
 # Template mixins

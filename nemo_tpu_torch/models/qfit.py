@@ -172,7 +172,9 @@ def fitQ(config):
     serial route, whose model paints batch over a model axis in chunks of
     ``qfitBatchSize``.  ``qfitTileBatch`` and ``qfitBatchSize`` default to
     "auto": the tile-batched route and chunks of 16 on CUDA, the serial
-    route with one model at a time on the CPU."""
+    route with one model at a time on the CPU.  A real-space reference
+    filter always takes the serial route, one model at a time, painted and
+    filtered at the tile's true shape."""
     from .. import filters as filters_mod
     from ..ops import detect as detect_ops
     from ..ops import fourier
@@ -266,10 +268,12 @@ def fitQ(config):
         t0 = time.time()
         filterObj.loadFilter()
         tPhase["loadFilter"] = time.time() - t0
+        realSpace = isinstance(filterObj, filters_mod.RealSpaceMatchedFilter)
 
         # Paint and apply at the filter's padded (FFT) shape, as the JAX
-        # package does: the cached filter lives on that grid.
-        shape = filterObj.padShape
+        # package does: the cached filter lives on that grid.  A real-space
+        # filter convolves at the tile's true shape.
+        shape = filterObj.shape if realSpace else filterObj.padShape
         pix = filterObj.pixScalesRad
         cy, cx = shape[0] / 2.0, shape[1] / 2.0
         # only the central window is needed for the peak read
@@ -293,11 +297,12 @@ def fitQ(config):
         # in chunks of qfitBatchSize (the last chunk padded by repeats);
         # the peak is read on the device with the detection path's
         # not-a-knot bicubic spline, window 24, which reproduces the host
-        # read's anchor formula (interp._WINDOW).
+        # read's anchor formula (interp._WINDOW).  A real-space filter
+        # applies one model at a time (its bands convolve one by one).
         batchSize = config.parDict.get("qfitBatchSize")
         if batchSize is None or batchSize == "auto":
             batchSize = 16 if onCuda else 1
-        batchSize = max(1, int(batchSize))
+        batchSize = 1 if realSpace else max(1, int(batchSize))
 
         peaks = []
         tPaint = None
@@ -341,10 +346,15 @@ def fitQ(config):
             for z, M500MSun in models:
                 signalMaps = fourier.apply_pixel_window(_paint(z, M500MSun),
                                                         pow=1.0)
-                filteredDev = filterObj.applyFilter(signalMaps,
-                                                    returnDevice=True)
-                crop = filteredDev[y0i:int(cy) + half,
-                                   x0i:int(cx) + half].cpu().numpy()
+                if realSpace:
+                    # host map out (background subtraction included)
+                    crop = filterObj.applyFilter(signalMaps)[
+                        y0i:int(cy) + half, x0i:int(cx) + half]
+                else:
+                    filteredDev = filterObj.applyFilter(signalMaps,
+                                                        returnDevice=True)
+                    crop = filteredDev[y0i:int(cy) + half,
+                                       x0i:int(cx) + half].cpu().numpy()
                 peaks.append(subpixel_value(crop, cy - y0i, cx - x0i))
             tPhase["serialLoop"] = time.time() - t0
 

@@ -98,6 +98,24 @@ def rmodlmap_graph(shape, pix_scales_rad, device=None,
     return torch.sqrt(ly[:, None] ** 2 + lx[None, :] ** 2)
 
 
+def radial_distance_map(shape, pix_scales_rad, center=None):
+    """Map of angular distance (radians) from a reference point.
+
+    Replicates ``MapFilter.makeRadiansMap`` (``nemo/filters.py:214-239``):
+    flat-sky distances with x/y pixel scales fixed at the map centre, centre
+    pixel at (floor coords of) shape/2.
+    """
+    ny, nx = shape[-2], shape[-1]
+    dy, dx = pix_scales_rad
+    if center is None:
+        cy, cx = ny // 2, nx // 2
+    else:
+        cy, cx = center
+    yy = (np.arange(ny) - cy) * dy
+    xx = (np.arange(nx) - cx) * dx
+    return np.sqrt(yy[:, None] ** 2 + xx[None, :] ** 2)
+
+
 @functools.lru_cache(maxsize=512)
 def good_fft_size(n):
     """Smallest 5-smooth (2^a 3^b 5^c) integer >= n.

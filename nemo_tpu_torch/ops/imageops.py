@@ -3,13 +3,17 @@
 Port of ``nemo_tpu/ops/imageops.py``: the separable Gaussian smoothing of
 the noise covariance (``gaussian_filter``, mode 'reflect'), its exact
 full-grid form from an rfft half grid, the van Herk min/max filters of the
-edge trim, and the 4-connected binary dilation.
+edge trim, the 4-connected binary dilation, and the reflect-boundary 2-d
+convolution of the real-space matched filter (``convolve2d_reflect`` and
+its band-summed and tile-batched forms).
 """
 
 import functools
 
 import numpy as np
 import torch
+
+from . import fourier
 
 
 @functools.lru_cache(maxsize=32)
@@ -30,6 +34,23 @@ def _symmetric_index(n, radius, device):
     return torch.where(i >= n, 2 * n - 1 - i, i)
 
 
+# Above this many taps a 1-d correlation on the CPU goes through the FFT:
+# torch's CPU conv1d unfolds a copy of the map per tap (481 taps for the
+# 30' background subtraction at 0.5', ~5 GB and ~1 s a pass on an 896 x
+# 1536 tile).  The noise covariance's smoothing (25 taps) stays direct.
+_CPU_FFT_TAPS = 64
+
+
+def _correlate1d_fft(moved, w):
+    """Valid 1-d correlation of the last axis of ``moved`` (padded by the
+    window's radius on both sides) with weights ``w``, through the FFT."""
+    n = moved.shape[-1]
+    L = fourier.good_fft_size(n)
+    full = torch.fft.irfft(torch.fft.rfft(moved, n=L)
+                           * torch.fft.rfft(torch.flip(w, (0,)), n=L), n=L)
+    return full[..., w.shape[0] - 1:n]
+
+
 def _correlate1d_reflect(m, weights, radius, axis):
     """1-d correlation along ``axis`` with scipy's 'reflect' boundary
     (numpy 'symmetric')."""
@@ -38,6 +59,9 @@ def _correlate1d_reflect(m, weights, radius, axis):
         m, axis, _symmetric_index(m.shape[axis], radius, m.device))
     moved = padded.movedim(axis, -1)
     lead_shape = moved.shape[:-1]
+    if m.device.type == "cpu" and len(weights) > _CPU_FFT_TAPS:
+        w = torch.as_tensor(np.ascontiguousarray(weights), dtype=m.dtype)
+        return _correlate1d_fft(moved, w).movedim(-1, axis)
     flat = moved.reshape(-1, 1, moved.shape[-1])
     w = torch.as_tensor(np.ascontiguousarray(weights[::-1]), dtype=m.dtype,
                         device=m.device)
@@ -141,6 +165,79 @@ def binary_dilate_cross(mask, iterations=1):
         m = torch.maximum(m, torch.maximum(torch.maximum(up, down),
                                            torch.maximum(left, right)))
     return m > 0
+
+
+def _reflect_pad(m, ky, kx):
+    """Pad the last two axes by an odd kernel's half-widths in numpy's
+    mode='symmetric' (scipy's 'reflect': the edge pixel repeats)."""
+    iy = _symmetric_index(m.shape[-2], ky // 2, m.device)
+    ix = _symmetric_index(m.shape[-1], kx // 2, m.device)
+    return m.index_select(-2, iy).index_select(-1, ix)
+
+
+def _check_odd(kernels, name):
+    ky, kx = kernels.shape[-2:]
+    if ky % 2 == 0 or kx % 2 == 0:
+        raise ValueError("%s requires odd-sized kernels" % name)
+
+
+def _conv_sum(padded, kern):
+    """The kernels' valid convolution with the padded maps, summed over
+    bands, through the FFT on either device: padded (T, nf, Y, X), kern
+    (T, nf, ky, kx) -> (T, Y - ky + 1, X - kx + 1).  The transform is the
+    convolution itself, so no kernel flip.  Measured on an H100 (700 W) for
+    16 x 2 x 896 x 1536 float32 with 29 x 29 kernels: 2.1 ms, where cuDNN's
+    grouped float32 ``conv2d`` (TF32 off) took 100 ms, ~1% of its bound,
+    with a 4.7x larger error against float64.  On the CPU, torch's float64
+    ``conv2d`` unfolds a ky*kx times copy of the map (~9 GB a band at that
+    size).  The transform agrees with the direct sum to ~1e-14 of the peak
+    in float64."""
+    Y, X = padded.shape[-2:]
+    ky, kx = kern.shape[-2:]
+    s = (fourier.good_fft_size(Y), fourier.good_fft_size(X))
+    prod = torch.fft.rfft2(padded, s=s) \
+        * torch.fft.rfft2(kern.to(padded.dtype), s=s)
+    full = torch.fft.irfft2(torch.sum(prod, dim=-3), s=s)
+    return full[..., ky - 1:Y, kx - 1:X]
+
+
+def convolve2d_reflect(m, kernel):
+    """scipy.ndimage.convolve(m, kernel, mode='reflect') for an odd-sized
+    2-d kernel, over the last two axes of ``m`` (the real-space matched
+    filter's kernels are odd by construction)."""
+    _check_odd(kernel, "convolve2d_reflect")
+    ky, kx = kernel.shape
+    padded = _reflect_pad(m, ky, kx)
+    flat = padded.reshape((-1, 1) + padded.shape[-2:])
+    kern = torch.as_tensor(kernel, device=m.device).expand(
+        flat.shape[0], 1, ky, kx)
+    out = _conv_sum(flat, kern)
+    return out.reshape(m.shape[:-2] + out.shape[-2:])
+
+
+def convolve2d_reflect_sum(m, kernels):
+    """``sum_f ndimage.convolve(m[f], kernels[f], mode='reflect')`` for maps
+    (nf, ny, nx) and per-band odd kernels (nf, ky, kx): the bands are
+    summed in the transform domain, inside the convolution."""
+    _check_odd(kernels, "convolve2d_reflect_sum")
+    ky, kx = kernels.shape[-2:]
+    return _conv_sum(_reflect_pad(m, ky, kx)[None],
+                     torch.as_tensor(kernels, device=m.device)[None])[0]
+
+
+def convolve2d_reflect_sum_batch(m, kernels):
+    """:func:`convolve2d_reflect_sum` for a tile batch: maps (T, nf, ny, nx)
+    and each tile's own kernels (T, nf, ky, kx) -> (T, ny, nx), in one
+    batch of transforms.  Calls are counted in
+    ``convolve2d_reflect_sum_batch.calls``."""
+    _check_odd(kernels, "convolve2d_reflect_sum")
+    convolve2d_reflect_sum_batch.calls += 1
+    ky, kx = kernels.shape[-2:]
+    return _conv_sum(_reflect_pad(m, ky, kx),
+                     torch.as_tensor(kernels, device=m.device))
+
+
+convolve2d_reflect_sum_batch.calls = 0
 
 
 def median_filter_host(m, size):

@@ -7,7 +7,9 @@ N^-1 w|s| solve), applies it, estimates the local-noise RMS (the
 hand-written ``rms_cells`` kernel, in the batched per-tile-geometry
 layout), forms the S/N map, trims edges and, in detection mode, segments
 the S/N map and reads per-object statistics on the device
-(:mod:`..ops.detect`).  The JAX package shards the batch over a device
+(:mod:`..ops.detect`).  The real-space step does the same tail after a
+band-summed convolution with each tile's own kernels, at the tiles' true
+shape.  The JAX package shards the batch over a device
 mesh with ``shard_map``; here the tile axis is a plain leading axis, and
 the survey ``psum``/``pmax`` reductions of the benchmark step are plain
 reductions over it.
@@ -324,3 +326,56 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
 
 
 make_matched_filter_step.calls = {"build": 0, "given": 0}
+
+
+def make_realspace_step(gridSize, trimPix, undo_pixel_window=False):
+    """The production batched real-space matched filter (the JAX package's
+    ``make_sharded_realspace_step``): the host engine's apply stage of
+    :class:`..filters.RealSpaceMatchedFilter` for a tile batch.  The
+    truncated kernels are built per tile on the host (a Fourier matched
+    filter on a sub-region, with the signal-norm calibration in
+    ``signalNorm``); the step does the full-tile work: the kernel
+    convolution (the bands summed inside it), the grid RMS (the
+    ``rms_cells`` kernel), S/N, edge trim and masking.  Each call adds one
+    to ``make_realspace_step.calls``.
+
+    Args of the returned function (leading tile axis T):
+        data: (T, nf, ny, nx) background-subtracted maps at the tiles'
+            true shape (no padding: the convolution reflects at the
+            genuine tile edge).
+        kern: (T, nf, ky, kx) odd kernels, zero-padded to the chunk's
+            largest kernel (exact: zero taps add nothing).
+        signalNorm: (T,) calibrations from the host kernel build.
+        apodM: (T, ny, nx) apodisation (only its == 1 core is used, as a
+            border cut).
+        psMask, surveyMask: (T, ny, nx) masks (any dtype; binary).
+        meta: :func:`..ops.noise.cell_meta_batch` dict of the true shape.
+    Returns a dict of "filtered" (signal units; the apodisation border
+    kept, as the host engine keeps it), "SNMap", "RMSMap" and "surveyMask"
+    (uint8).
+    """
+
+    def step(data, kern, signalNorm, apodM, psMask, surveyMask, meta):
+        _check_one_device(data, kern, signalNorm, apodM, psMask, surveyMask)
+        make_realspace_step.calls += 1
+        dt = data.dtype
+        psMask = psMask.to(dt)
+        filtered = imageops.convolve2d_reflect_sum_batch(data, kern)
+        filtered = filtered * signalNorm[:, None, None].to(dt)
+        filtered = filtered * psMask
+        RMSMap = noise_ops.grid_rms_map_batch(filtered, gridSize, meta=meta)
+        SNMap = _sn(filtered, RMSMap)
+        maskData = _edge_check(filtered, psMask, trimPix) \
+            * surveyMask.to(dt) * psMask
+        maskSN = maskData * (apodM == 1)
+        outMap = filtered * maskData
+        if undo_pixel_window:
+            outMap = _undo_pixel_window_masked(outMap, maskData)
+        return {"filtered": outMap, "SNMap": SNMap * maskSN,
+                "RMSMap": RMSMap * maskSN,
+                "surveyMask": maskSN.to(torch.uint8)}
+
+    return step
+
+
+make_realspace_step.calls = 0

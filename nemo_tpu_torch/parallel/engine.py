@@ -25,8 +25,15 @@ results, with none of the JAX package's remote-link machinery (coalesced
 copy batches, bit-packed masks, pipeline and lag depths); the filter cache
 FITS is written synchronously, and cached-filter reruns read it back (no
 device-resident filter cache); a rerun that applies cached filters writes
-no RMS map (the host engine's rule).  The real-space step is not ported
-yet.
+no RMS map (the host engine's rule).
+
+Real-space filters (:class:`..filters.RealSpaceMatchedFilter`) take their
+own route: each (tile, label) builds its kernel on the host at staging
+(with the background subtraction), tiles are bucketed per label by their
+true shape (no FFT padding: the convolution reflects at the genuine tile
+edge), and each chunk goes through
+:func:`.distribute.make_realspace_step` (band-summed convolution, grid RMS,
+S/N, edge trim); detection stays on the host for them.
 """
 
 import functools
@@ -43,10 +50,15 @@ from ..models import sz
 from ..ops import fourier
 from ..ops import noise as noise_ops
 from ..ops import paint as paint_ops
-from .distribute import make_matched_filter_step, subpixel_read_batch
+from ..utils.timing import GLOBAL_TIMER
+from .distribute import (make_matched_filter_step, make_realspace_step,
+                         subpixel_read_batch)
 
 _BATCHABLE_CLASSES = ("BeamMatchedFilter", "ArnaudModelMatchedFilter",
                       "BattagliaModelMatchedFilter")
+_REALSPACE_CLASSES = ("BeamRealSpaceMatchedFilter",
+                      "ArnaudModelRealSpaceMatchedFilter",
+                      "BattagliaModelRealSpaceMatchedFilter")
 # Config keys of the JAX package's remote-link pipelining: accepted and
 # ignored (a local card needs no upload/download overlap machinery).
 _LINK_KEYS = ("chunkPipelineDepth", "detectLagDepth")
@@ -65,11 +77,15 @@ def eligibleForBatch(f, parDict):
     """A filter spec can go through the batched device path when it is a
     Fourier matched filter with the dataMap, model or max(dataMap,CMB)
     noise method and none of the host-only extras (plots, weight-binned
-    noise cells, noise-model catalogs, background subtraction).  Real-space
-    filters stay on the host path (their batched step is not ported
-    yet)."""
+    noise cells, noise-model catalogs, background subtraction), or a
+    real-space matched filter with a device-expressible RMS grid (its
+    kernel builds on the host whatever its noise method; background
+    subtraction runs at staging)."""
     params = f["params"]
     noiseParams = params.get("noiseParams", {})
+    if f["class"] in _REALSPACE_CLASSES:
+        return _rmsGridBatchable(noiseParams) \
+            and params.get("outputUnits") in ("yc", "uK")
     if f["class"] not in _BATCHABLE_CLASSES:
         return False
     if params.get("savePlots"):
@@ -425,6 +441,77 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
                        "shape": filterObj.shape}
 
 
+def _prepare_tile_realspace(config, f, tileName, mapsList=None,
+                            diagnosticsDir=None):
+    """Host-side staging for one (tile, real-space filter): the kernel
+    build (sub-region Fourier matched filter, truncation, signal-norm
+    calibration: ``RealSpaceMatchedFilter.buildKernel``), the background
+    subtraction and the masks, at the tile's true shape.  Returns
+    (filterObj, stacks dict); the stacks carry the seconds of the kernel
+    build (``kernelSeconds``) and of the whole staging (``stageSeconds``)
+    for the chunk budget."""
+    t0 = time.time()
+    filterClass = filters_mod.getFilterClass(f["class"])
+    filterObj = filterClass(f["label"],
+                            mapsList or config.unfilteredMapsDictList,
+                            f["params"], tileName=tileName,
+                            diagnosticsDir=diagnosticsDir
+                            or config.diagnosticsDir,
+                            selFnDir=config.selFnDir, policy=config.policy)
+    params = filterObj.params
+    tKernel = time.time()
+    with GLOBAL_TIMER.stage("buildKernel"):
+        filterObj.buildKernel(filterObj._resolveRADecSection())
+    tKernel = time.time() - tKernel
+
+    dataStack = np.stack([np.asarray(m["data"], dtype=np.float64)
+                          for m in filterObj.unfilteredMapsDictList])
+    if params.get("bckSub") and filterObj.bckSubScaleArcmin > 0:
+        from .. import maps as maps_mod
+        dataStack = np.stack([
+            maps_mod.subtractBackground(
+                dataStack[i], filterObj.wcs,
+                smoothScaleDeg=filterObj.bckSubScaleArcmin / 60.0,
+                policy=config.policy)
+            for i in range(dataStack.shape[0])])
+
+    surveyMask = np.asarray(
+        filterObj.unfilteredMapsDictList[0]["surveyMask"], dtype=np.float64)
+    psMask = np.asarray(
+        filterObj.unfilteredMapsDictList[0]["pointSourceMask"],
+        dtype=np.float64)
+    validHost = (dataStack != 0).all(axis=0)
+    if not validHost.all():
+        # ragged coverage: the coverage-edge trim (erosion only: the
+        # compact kernel needs no taper), as the host engine does
+        _, keep = filters_mod.raggedEdgeArrays(
+            validHost, filterObj.apodPix, filterObj._trimSizePix(),
+            gridPix=filterObj._noiseGridPix())
+        surveyMask = surveyMask * keep
+    return filterObj, {"data": dataStack,
+                       "kern": np.asarray(filterObj.kern2d,
+                                          dtype=np.float64),
+                       "signalNorm": float(filterObj.signalNorm),
+                       "apodM": _apod_np(filterObj.shape,
+                                         filterObj.apodPix),
+                       "surveyMask": surveyMask, "psMask": psMask,
+                       "gridSize": filterObj._noiseGridPix(),
+                       "trimPix": filterObj._trimSizePix(),
+                       "shape": tuple(filterObj.shape),
+                       "kernelSeconds": tKernel,
+                       "stageSeconds": time.time() - t0}
+
+
+def _padKernels(kern, kShape):
+    """Zero-pad (nf, ky, kx) kernels symmetrically to a chunk's common odd
+    kernel shape: exact for the reflect convolution (zero taps add
+    nothing, and the centre tap stays centred)."""
+    ky, kx = kern.shape[-2:]
+    dy, dx = kShape[0] - ky, kShape[1] - kx
+    assert dy % 2 == 0 and dx % 2 == 0
+    return np.pad(kern, ((0, 0), (dy // 2, dy // 2), (dx // 2, dx // 2)))
+
+
 def _asBinaryMask(m):
     """uint8 copy of a strictly-binary mask; others pass through."""
     m = np.asarray(m)
@@ -473,6 +560,8 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
     the device work); a chunk is flushed to the device as soon as
     ``deviceBatchSize`` tiles of one padded-shape bucket are staged
     (default 2 per device: 2 on one GPU; config key ``deviceBatchSize``).
+    A real-space label's tiles are bucketed apart, per label and true
+    tile shape, and each chunk of them runs one real-space step.
 
     ``useCachedFilters``: a label whose every tile of a chunk has a saved
     filter applies the saved filters with the given-filter step (no
@@ -493,12 +582,20 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
               "needs none)" % ", ".join(ignored), flush=True)
 
     templateCache = {}
-    mfBank = [f for f in fList if not f["params"].get("mapToUse")] or None
+    mfList = [f for f in fList if f["class"] not in _REALSPACE_CLASSES]
+    mfBank = [f for f in mfList if not f["params"].get("mapToUse")] or None
     results = {f["label"]: {} for f in fList}
     staged = {f["label"]: {} for f in fList}
     buckets = {}        # key -> {"names": [...], "labels": set()}
+    rsBuckets = {}      # (label, key) -> [names]  (real-space: per label)
     run = {"chunk": 0, "stageWait": 0.0, "waitFiled": 0.0,
            "t0": time.time()}
+
+    def _filedWait():
+        wait = run["stageWait"] - run["waitFiled"]
+        run["waitFiled"] = run["stageWait"]
+        run["chunk"] += 1
+        return wait
 
     def _flush(key, bucket):
         padShape, nf, gridSize, trimPix = key
@@ -526,19 +623,28 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
                             consume=consume, detectParams=detectParams,
                             chunkIdx=run["chunk"],
                             diagnosticsDir=diagnosticsDir,
-                            stageWait=run["stageWait"] - run["waitFiled"])
-            run["waitFiled"] = run["stageWait"]
-            run["chunk"] += 1
+                            stageWait=_filedWait())
+
+    def _flush_rs(label, key, names):
+        _, _, gridSize, trimPix = key
+        entries = {n: staged[label].pop(n) for n in names}
+        _run_bucket_realspace(config, entries, names, gridSize, trimPix,
+                              undoPixelWindow, verbose, results, label,
+                              consume=consume, chunkIdx=run["chunk"],
+                              diagnosticsDir=diagnosticsDir,
+                              stageWait=_filedWait())
 
     def _stageTileWorker(tileName):
         mapsList = _preprocessTileOnce(config, tileName, diagnosticsDir)
-        common = _stage_tile_common_from_maps(mapsList)
-        return [(f,) + _prepare_tile(config, f, tileName,
-                                     templateCache=templateCache,
-                                     mapsList=mapsList, common=common,
-                                     diagnosticsDir=diagnosticsDir,
-                                     bank=mfBank,
-                                     useCachedFilter=useCachedFilters)
+        common = _stage_tile_common_from_maps(mapsList) if mfList else None
+        return [(f,) + (_prepare_tile_realspace(
+                    config, f, tileName, mapsList=mapsList,
+                    diagnosticsDir=diagnosticsDir)
+                    if f["class"] in _REALSPACE_CLASSES else _prepare_tile(
+                    config, f, tileName, templateCache=templateCache,
+                    mapsList=mapsList, common=common,
+                    diagnosticsDir=diagnosticsDir, bank=mfBank,
+                    useCachedFilter=useCachedFilters))
                 for f in fList]
 
     # One staging worker with a bounded look-ahead: tiles are staged in
@@ -562,9 +668,16 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
                 _submitPrefetch(tileIdx + lookahead)
                 run["stageWait"] += time.time() - t0
                 for f, filterObj, stacks in entries:
+                    staged[f["label"]][tileName] = (filterObj, stacks)
+                    if f["class"] in _REALSPACE_CLASSES:
+                        # the true tile shape: no padding of the maps
+                        key = (stacks["shape"], stacks["data"].shape[0],
+                               stacks["gridSize"], stacks["trimPix"])
+                        rsBuckets.setdefault((f["label"], key),
+                                             []).append(tileName)
+                        continue
                     key = (stacks["padShape"], stacks["data"].shape[0],
                            stacks["gridSize"], stacks["trimPix"])
-                    staged[f["label"]][tileName] = (filterObj, stacks)
                     bucket = buckets.setdefault(key, {"names": [],
                                                       "labels": set()})
                     bucket["labels"].add(f["label"])
@@ -572,6 +685,10 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
                         bucket["names"].append(tileName)
                 # flush only at tile boundaries, so every filter of the
                 # bank is staged for every tile of the chunk
+                for (label, key), names in list(rsBuckets.items()):
+                    if len(names) >= deviceBatchSize:
+                        _flush_rs(label, key, names)
+                        rsBuckets[(label, key)] = []
                 for key, bucket in list(buckets.items()):
                     if len(bucket["names"]) >= deviceBatchSize:
                         _flush(key, bucket)
@@ -579,6 +696,9 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
         finally:
             for fut in prefetched.values():
                 fut.cancel()
+    for (label, key), names in rsBuckets.items():
+        if names:
+            _flush_rs(label, key, names)
     for key, bucket in buckets.items():
         if bucket["names"]:
             _flush(key, bucket)
@@ -971,10 +1091,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
     if verbose:
         print("... device batch: %d tile(s) x %d filter(s) at %s"
               % (len(names), len(labels), str(padShape)), flush=True)
-    tPhase = {"stageWait": stageWait, "upload": ctx["stageUpload"],
-              "step": 0.0, "download": 0.0, "hostOther": 0.0,
-              "downBytes": 0, "consume": 0.0, "detectLabels": 0,
-              "detectTiles": 0, "overflowTiles": 0, "givenLabels": 0}
+    tPhase = _new_budget(stageWait, ctx["stageUpload"])
     halfShape = (padShape[0], padShape[1] // 2 + 1)
 
     photLabel = config.parDict.get("photFilter")
@@ -1064,14 +1181,99 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
                  tPhase["downBytes"] / 1e6, tPhase["consume"],
                  tPhase["hostOther"], tPhase["detectLabels"], len(labels),
                  tPhase["overflowTiles"]), flush=True)
+    _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, len(names),
+                  len(labels), padShape, dev, tChunk0, cpu0)
+
+
+def _new_budget(stageWait, upload):
+    return {"stageWait": stageWait, "upload": upload, "step": 0.0,
+            "download": 0.0, "hostOther": 0.0, "downBytes": 0,
+            "consume": 0.0, "detectLabels": 0, "detectTiles": 0,
+            "overflowTiles": 0, "givenLabels": 0}
+
+
+def _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, nTiles,
+                  nLabels, padShape, dev, tChunk0, cpu0):
+    """Append one chunk's budget to ``diagnostics/chunk_budgets.jsonl``."""
     diagnosticsDir = diagnosticsDir or config.diagnosticsDir
-    if diagnosticsDir:
-        rec = dict(tPhase, chunk=chunkIdx, nTiles=len(names),
-                   nLabels=len(labels), padShape=list(padShape),
-                   device=str(dev), t_wall=time.time(),
-                   wall_s=time.time() - tChunk0,
-                   cpu_s=time.process_time() - cpu0)
-        os.makedirs(diagnosticsDir, exist_ok=True)
-        with open(os.path.join(diagnosticsDir, "chunk_budgets.jsonl"),
-                  "a") as f:
-            f.write(json.dumps(rec) + "\n")
+    if not diagnosticsDir:
+        return
+    rec = dict(tPhase, chunk=chunkIdx, nTiles=nTiles, nLabels=nLabels,
+               padShape=list(padShape), device=str(dev),
+               t_wall=time.time(), wall_s=time.time() - tChunk0,
+               cpu_s=time.process_time() - cpu0)
+    os.makedirs(diagnosticsDir, exist_ok=True)
+    with open(os.path.join(diagnosticsDir, "chunk_budgets.jsonl"),
+              "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
+                          undoPixelWindow, verbose, results, label,
+                          consume=None, chunkIdx=0, diagnosticsDir=None,
+                          stageWait=0.0):
+    """One real-space step for a chunk of one label's same-shaped tiles
+    (``entries``: tileName -> (filterObj, stacks) from
+    :func:`_prepare_tile_realspace`), then each tile's result emitted.
+
+    The chunk's budget line adds ``kernelBuild`` and ``staging``: the
+    seconds its tiles' kernel builds and whole stagings took on the
+    staging worker."""
+    tChunk0 = time.time()
+    cpu0 = time.process_time()
+    P = config.policy
+    stacks = [entries[n][1] for n in names]
+    shape = stacks[0]["shape"]
+    if verbose:
+        print("... device batch (real-space): %d tile(s) of %s at %s"
+              % (len(names), label, str(shape)), flush=True)
+    kShape = (max(st["kern"].shape[-2] for st in stacks),
+              max(st["kern"].shape[-1] for st in stacks))
+    t0 = time.time()
+    inputs = [P.tensor(np.stack(arrs)) for arrs in (
+        [st["data"] for st in stacks],
+        [_padKernels(st["kern"], kShape) for st in stacks],
+        [st["signalNorm"] for st in stacks],
+        [st["apodM"] for st in stacks],
+        [st["psMask"] for st in stacks],
+        [st["surveyMask"] for st in stacks])]
+    dev = inputs[0].device
+    _sync(dev)
+    tPhase = dict(_new_budget(stageWait, time.time() - t0),
+                  kernelBuild=sum(st["kernelSeconds"] for st in stacks),
+                  staging=sum(st["stageSeconds"] for st in stacks))
+    # the true shape is the batch shape: the noise cells of every tile
+    # are laid out on it
+    meta = noise_ops.cell_meta_batch([shape] * len(names), shape, gridSize)
+    step = make_realspace_step(gridSize, trimPix,
+                               undo_pixel_window=undoPixelWindow)
+    t0 = time.time()
+    out = step(*inputs, meta)
+    _sync(dev)
+    tPhase["step"] = time.time() - t0
+
+    tEmit = time.time()
+    filtered = _download(out["filtered"], tPhase)
+    SNMaps = _download(out["SNMap"], tPhase)
+    RMSMaps = _download(out["RMSMap"], tPhase) \
+        if entries[names[0]][0].params.get("saveRMSMap") else None
+    outMask = _download(out["surveyMask"], tPhase).astype(float)
+    del out, inputs
+    for i, tileName in enumerate(names):
+        _emit_result(config, entries[tileName][0], tileName, filtered[i],
+                     SNMaps[i], None if RMSMaps is None else RMSMaps[i],
+                     outMask[i], False, results[label])  # undo ran in-step
+        _deliver(label, tileName, results[label][tileName], results,
+                 consume, tPhase)
+    tPhase["hostOther"] = time.time() - tEmit - tPhase["download"] \
+        - tPhase["consume"]
+    if verbose:
+        print("    [chunk: upload %.2fs, step %.2fs, download %.2fs "
+              "(%.1f MB), host catalog %.2fs, other host %.2fs; staging "
+              "%.2fs, of it kernel builds %.2fs]"
+              % (tPhase["upload"], tPhase["step"], tPhase["download"],
+                 tPhase["downBytes"] / 1e6, tPhase["consume"],
+                 tPhase["hostOther"], tPhase["staging"],
+                 tPhase["kernelBuild"]), flush=True)
+    _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, len(names), 1,
+                  shape, dev, tChunk0, cpu0)

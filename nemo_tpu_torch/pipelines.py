@@ -394,8 +394,13 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
     selection function's RMS maps."""
     from .parallel import engine as batch_engine
 
+    # a cached-filter rerun reloads a saved real-space kernel on the host
+    # engine (its loadFilter honours the kernel cache), as the JAX package
+    # does
     eligible = [f for f in filtersList
-                if batch_engine.eligibleForBatch(f, config.parDict)]
+                if batch_engine.eligibleForBatch(f, config.parDict)
+                and not (useCachedFilters and f["params"].get("saveFilter")
+                         and f["class"] in batch_engine._REALSPACE_CLASSES)]
     if not eligible:
         return
     eligibleLabels = set(f["label"] for f in eligible)

@@ -544,3 +544,72 @@ def test_legendre_kernel_raises_on_cpu_tensors(cuda_card):
     launches = sht.legendre_contract.launches
     sht.legendre_contract(thetas, are, aim, 20, 20, device="cpu")
     assert sht.legendre_contract.launches == launches
+
+
+def realspace_inputs(seed=2027, T=3, shape=(200, 300), k=29):
+    """A real-space step's inputs: T tiles of two bands of noise plus
+    blobs, each tile with its own odd kernels, calibrations, apodisation
+    and masks (a point-source hole in one tile)."""
+    from nemo_tpu_torch.ops import fourier as tf
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:k, :k] - k // 2
+    data = rng.normal(0, 30.0, (T, 2) + shape)
+    kern = np.stack([[np.exp(-(yy ** 2 + xx ** 2) / (2 * s ** 2))
+                      - 0.2 * np.exp(-(yy ** 2 + xx ** 2) / (2 * (3 * s) ** 2))
+                      + 1e-3 * rng.normal(size=(k, k))
+                      for s in (2.0 + t, 3.0 + t)] for t in range(T)])
+    apod = np.outer(tf._apod_profile(shape[0], 20),
+                    tf._apod_profile(shape[1], 20))
+    psMask = np.ones((T,) + shape)
+    psMask[1, 90:100, 140:160] = 0
+    return {"data": data, "kern": kern,
+            "signalNorm": rng.uniform(1e-5, 2e-5, T),
+            "apodM": np.broadcast_to(apod, (T,) + shape).copy(),
+            "psMask": psMask, "surveyMask": np.ones((T,) + shape)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-5)])
+def test_convolve2d_reflect_sum_on_card_matches_cpu(cuda_card, dtype, tol):
+    """The convolution on the card (through cuFFT) against the CPU float64
+    convolution, within tol of the peak."""
+    from nemo_tpu_torch import device as device_mod
+    from nemo_tpu_torch.ops import imageops
+    device_mod.policy("cuda")
+    a = realspace_inputs()
+    m, k = torch.as_tensor(a["data"]), torch.as_tensor(a["kern"])
+    ref = imageops.convolve2d_reflect_sum_batch(m, k).numpy()
+    got = imageops.convolve2d_reflect_sum_batch(
+        m.to(cuda_card, dtype), k.to(cuda_card, dtype)).cpu().numpy()
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+    one = imageops.convolve2d_reflect_sum(m[1].to(cuda_card, dtype),
+                                          k[1].to(cuda_card, dtype))
+    assert np.abs(one.cpu().numpy() - ref[1]).max() \
+        <= tol * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_realspace_step_on_card_matches_cpu(cuda_card):
+    """The real-space batched step on the card in float64 against the CPU
+    run: rtol 1e-9 of the peak, the grid RMS through the kernel."""
+    from nemo_tpu_torch.ops import noise as noise_ops
+    from nemo_tpu_torch.parallel import distribute
+    a = realspace_inputs()
+    shape = a["data"].shape[-2:]
+    meta = noise_ops.cell_meta_batch([shape] * 3, shape, 40)
+    step = distribute.make_realspace_step(40, 20, undo_pixel_window=True)
+    t = [torch.as_tensor(a[key]) for key in ("data", "kern", "signalNorm",
+                                             "apodM", "psMask",
+                                             "surveyMask")]
+    ref = step(*t, meta)
+    launches = tn.rms_cells.launches
+    got = step(*(x.to(cuda_card) for x in t), meta)
+    torch.cuda.synchronize()
+    assert tn.rms_cells.launches == launches + 1
+    for key in ("filtered", "SNMap", "RMSMap"):
+        r = ref[key].numpy()
+        np.testing.assert_allclose(got[key].cpu().numpy(), r, rtol=1e-9,
+                                   atol=1e-9 * np.abs(r).max())
+    np.testing.assert_array_equal(got["surveyMask"].cpu().numpy(),
+                                  ref["surveyMask"].numpy())

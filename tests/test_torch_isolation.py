@@ -175,7 +175,8 @@ COPIED_FUNCTIONS = [("maps.py", name) for name in (
     "estimateContamination")] + [
     ("ops/sht.py", name) for name in (
         "_lgc_table", "car_ring_geometry", "ring_weights")] + [
-    ("ops/grf.py", "dec_band_count")]
+    ("ops/grf.py", "dec_band_count"),
+    ("ops/fourier.py", "radial_distance_map")]
 
 
 def _function_source(path, name):
