@@ -6,6 +6,8 @@
                                         # phases 1, 2 and 14a only
     python3 -c 'import chip_smoke; chip_smoke.realspace_only()'
                                         # phases 1, 2, 7, 15 and rms_cells
+    python3 -c 'import chip_smoke; chip_smoke.tools_only()'
+                                        # phases 1, 2, 7, 10 and 16
 
 Builds the port's CUDA kernels from the checkout, holds each against its
 plain torch version at the main paths' shapes, then runs the one-tile cluster
@@ -19,7 +21,8 @@ RMS tables, completeness, mass-limit maps), through ``nemoMass``, and
 through ``nemo -I`` (the source-injection test); then the simulated skies
 on a survey at dec -47: model-noise filtering, the sky-sim contamination
 estimate and ``nemoModel``; then the real-space (DR3-style) search on the
-survey.
+survey; then the survey's tools: ``nemoSpec``, ``nemoMock``,
+``nemoCatalogCheck``, the extended-source mask and ``nemo --profile``.
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
@@ -125,7 +128,23 @@ non-zero and prints no result):
     tiles: the card's kernels fitted on the card and on the CPU in
     float64 (rtol 1e-4), the card against the CPU's own float64 kernels
     and fit (within 1e-4 of the largest Q), and the card's kernels and
-    fit in float64 against the CPU's (rtol 1e-9).
+    fit in float64 against the CPU's (rtol 1e-9);
+ 16 the tools on phase 7's survey: (a) ``nemoSpec -m matchedFilter`` at
+    phase 15's catalog on the 16 tiles on the card (rms_cells launched
+    twice a (tile, template) filter, no plain call) and on two tiles on
+    the CPU in float64, y_c and S/N per band within 1e-4 relative; (b)
+    ``nemoSpec -m CAP`` on four tiles, card against CPU float64, within
+    1e-4 of each column's largest; (c) ``nemoMock -N 3`` on phase 10's
+    selFn/ on the CPU (the transfer from phase 12's cache) and on the
+    card with the transfer cache emptied (one boltzmann_rk4 launch): the
+    mass-function grids within 1e-8, the mocks row for row (rtol 1e-6;
+    the totals within 3 sqrt(N) if a draw moved); (d) ``nemoCatalogCheck``
+    of the truth clusters against phase 10's run, card and CPU printing
+    and writing the same; (e) ``makeExtendedSourceMask`` on a tile with an
+    added blob, card against CPU float64 but within a dilation of pixels
+    at the threshold; (f) ``nemo --profile`` on two chunks of 8 tiles,
+    the trace written and naming both kernels, the catalog bitwise that
+    of the same run without the flag, its five longest device operations.
 The last lines are the convolution's JSON record (a library call), the
 kernels' JSON record, the card's name and power limit, and {"ok": true,
 "device": {...}}.
@@ -2834,6 +2853,536 @@ def conv_row(conv, counts):
                  % (SHAPE[0], SHAPE[1], RS_KERNEL, RS_KERNEL)}
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+# 16a's CPU float64 comparison (the card runs all 16 tiles); 16b's tiles,
+# all four on the card and on the CPU
+SPEC_CPU_TILES = ("T11", "T12")
+CAP_TILES = ("T11", "T12", "T21", "T22")
+MOCKS = 3
+MOCK_SEED = SEED + 16
+# tests/test_preprocessing_features.py:123-128's settings and blob
+EXT_TILE = "T11"
+EXT_SETTINGS = {"thresholdSigma": 5.0, "bigScaleDeg": 1.0,
+                "smallScaleDeg": 0.1, "dilationPix": 2}
+EXT_BLOB = (3000.0, 450, 760, 30.0)          # uK, y, x, sigma (pixels)
+PROFILE_BATCH = 8                            # two chunks of the 16 tiles
+
+
+def tools_config(surveyDict, outName, tiles=None, **over):
+    """Phase 7's survey with the quickstart's two scales, written as JSON
+    (which YAML parsers read too) under WORK/tools; ``tiles`` keeps those
+    tiles only.  Returns the config path."""
+    d = copy.deepcopy(with_filters(surveyDict, SIM_LABELS, **over))
+    if tiles is not None:
+        d["tileDefinitions"] = [t for t in d["tileDefinitions"]
+                                if t["tileName"] in tiles]
+    work = os.path.join(WORK, "tools")
+    os.makedirs(work, exist_ok=True)
+    d["outputDir"] = os.path.join(work, outName)
+    path = os.path.join(work, outName + ".yml")
+    with open(path, "w") as f:
+        json.dump(d, f, indent=1)
+    return path
+
+
+@contextlib.contextmanager
+def working_directory(path):
+    """Run a CLI from ``path`` (nemoSpec's cache and nemoCatalogCheck's
+    tables go to the working directory)."""
+    os.makedirs(path, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def spec_targets(catPath):
+    """nemoSpec's targets: the name, position and template of each row of
+    a two-scale run's optimal catalog, written as FITS."""
+    from nemo_tpu_torch import catalogs
+    from nemo_tpu_torch.utils.tables import Table
+    cat = Table.read(catPath)
+    if sorted(set(np.asarray(cat["template"]))) != sorted(SIM_LABELS):
+        raise RuntimeError("the targets' templates are %s"
+                           % sorted(set(np.asarray(cat["template"]))))
+    path = os.path.join(WORK, "tools", "targets.fits")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    catalogs.writeCatalog(Table({k: np.asarray(cat[k]) for k in (
+        "name", "RADeg", "decDeg", "template")}), path)
+    return path, len(cat)
+
+
+def rows_by_name(got, ref, cols):
+    """{column: (got values, ref values)} over ref's rows, each matched by
+    name to got's one row of that name."""
+    names = list(np.asarray(got["name"]))
+    if len(set(names)) != len(names):
+        raise RuntimeError("repeated names in a nemoSpec table")
+    idx = [names.index(n) for n in np.asarray(ref["name"])]
+    return {c: (np.asarray(got[c], dtype=float)[idx],
+                np.asarray(ref[c], dtype=float)) for c in cols}
+
+
+def spec_phase(noise, detect, card, surveyDict, targets, device="cuda"):
+    """16a and 16b: ``nemoSpec -m matchedFilter`` on the 16 tiles on the
+    card and on SPEC_CPU_TILES on the CPU in float64; ``nemoSpec -m CAP``
+    on CAP_TILES on both.  Returns the matched-filter run's rms_cells
+    launches."""
+    import torch
+    from nemo_tpu_torch import filters
+    from nemo_tpu_torch.cli import nemoSpec_main
+    from nemo_tpu_torch.utils.tables import Table
+    work = os.path.join(WORK, "tools")
+    runs = {}
+
+    def run(tag, dev, method, tiles=None):
+        cfgPath = tools_config(surveyDict, "spec_" + tag, tiles=tiles)
+        outPath = os.path.join(work, "spec_%s.fits" % tag)
+        calls = {"filterMaps": 0}
+
+        def counted(orig):
+            def f(*a, **kw):
+                calls["filterMaps"] += 1
+                return orig(*a, **kw)
+            return f
+        reset_counts(noise, detect)
+        t0 = time.perf_counter()
+        with working_directory(os.path.join(work, "cwd_" + tag)), \
+                patched((filters, "filterMaps", counted)):
+            nemoSpec_main.main([cfgPath, targets, "-m", method, "-o",
+                                outPath, "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[tag] = (Table.read(outPath), secs, read_counts(noise, detect),
+                     calls["filterMaps"])
+
+    run("mf_" + device, device, "matchedFilter")
+    run("mf_cpu", "cpu", "matchedFilter", tiles=SPEC_CPU_TILES)
+    tab, secs, counts, nFilters = runs["mf_" + device]
+    cpuTab, cpuSecs, cpuCounts, _ = runs["mf_cpu"]
+    cols = [c for c in cpuTab.keys() if c.startswith(("y_c_", "SNR_"))]
+    if len(cols) != 4 or len(cpuTab) == 0:
+        raise RuntimeError("nemoSpec -m matchedFilter columns %s, %d CPU "
+                           "rows" % (cols, len(cpuTab)))
+    rel = {c: float(np.max(np.abs(g / r - 1)))
+           for c, (g, r) in rows_by_name(tab, cpuTab, cols).items()}
+    # each (tile, template) filter is built and applied to the reference
+    # band, then applied to the other: one grid RMS (one launch) a band
+    onCard = device == "cuda"
+    want = 2 * nFilters if onCard else 0
+    if counts["rms_cells"] != want or nFilters < len(SIM_LABELS) \
+            or (counts["rms_plain"] if onCard else False):
+        raise RuntimeError("nemoSpec -m matchedFilter: %d filters, counts "
+                           "%s" % (nFilters, counts))
+    phase(16, "16a nemoSpec -m matchedFilter --device %s, %d tiles, %d "
+          "targets: %d rows in %.2f s, %d (tile, template) filters, "
+          "rms_cells launches %d (2 a filter: the reference band and the "
+          "PSF-matched other), plain calls %d; the CPU float64 run on %s: "
+          "%d rows in %.2f s; card vs CPU max |ratio - 1| %s (tolerance "
+          "1e-4) (%s)"
+          % (device, len(surveyDict["tileDefinitions"]),
+             len(Table.read(targets)), len(tab), secs, nFilters,
+             counts["rms_cells"], counts["rms_plain"],
+             "+".join(SPEC_CPU_TILES), len(cpuTab), cpuSecs,
+             json.dumps({c: float("%.3e" % v) for c, v in rel.items()}),
+             card))
+    if max(rel.values()) > 1e-4:
+        raise RuntimeError("nemoSpec -m matchedFilter card vs CPU: %s" % rel)
+
+    run("cap_" + device, device, "CAP", tiles=CAP_TILES)
+    run("cap_cpu", "cpu", "CAP", tiles=CAP_TILES)
+    capTab, capSecs, _, _ = runs["cap_" + device]
+    capCpu, capCpuSecs, _, _ = runs["cap_cpu"]
+    cols = [c for c in capCpu.keys() if c.startswith("diskT_uKArcmin2_")]
+    if len(cols) != 2 or len(capTab) != len(capCpu) or len(capCpu) == 0:
+        raise RuntimeError("nemoSpec -m CAP: columns %s, rows %d / %d"
+                           % (cols, len(capTab), len(capCpu)))
+    ofMax = {c: float(np.max(np.abs(g - r)) / np.max(np.abs(r)))
+             for c, (g, r) in rows_by_name(capTab, capCpu, cols).items()}
+    phase(16, "16b nemoSpec -m CAP --device %s on %s: %d rows in %.2f s "
+          "(host-bound: a distance map per target, band and random); CPU "
+          "float64 %.2f s; card vs CPU max |diff| / max |column| %s "
+          "(tolerance 1e-4) (%s)"
+          % (device, "+".join(CAP_TILES), len(capTab), capSecs, capCpuSecs,
+             json.dumps({c: float("%.3e" % v) for c, v in ofMax.items()}),
+             card))
+    if max(ofMax.values()) > 1e-4:
+        raise RuntimeError("nemoSpec -m CAP card vs CPU: %s" % ofMax)
+    return counts["rms_cells"]
+
+
+def mock_phase(noise, detect, card, selFnDir, device="cuda"):
+    """16c: ``nemoMock -N MOCKS -s MOCK_SEED`` on a selFn/ with DR5's
+    massOptions (the default Boltzmann transfer), on the CPU (float64, the
+    plain solve, from this process's cache where an earlier phase solved
+    that cosmology) and then on the card with the cache emptied, so that
+    this path launches the kernel.  Returns the card run's boltzmann_rk4
+    launches."""
+    from nemo_tpu_torch import mock as mock_mod
+    from nemo_tpu_torch.cli import nemoMock_main
+    from nemo_tpu_torch.models import cosmology
+    from nemo_tpu_torch.utils.tables import Table
+    cache = cosmology._boltzmann_Tk_cached
+    out = {}
+    for dev in ("cpu", device):
+        grids = []
+
+        def recording(orig):
+            class Recorded(orig):
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    grids.append(np.array(self.clusterCount))
+            return Recorded
+        if dev == "cuda":
+            cache.cache_clear()
+        before = cache.cache_info()
+        mocksDir = os.path.join(WORK, "tools", "mocks_" + dev)
+        reset_counts(noise, detect)
+        t0 = time.perf_counter()
+        with patched((mock_mod, "MockSurvey", recording)):
+            nemoMock_main.main([selFnDir, mocksDir, "-N", str(MOCKS), "-s",
+                                str(MOCK_SEED), "--device", dev])
+        secs = time.perf_counter() - t0
+        after = cache.cache_info()
+        tabs = [Table.read(os.path.join(mocksDir, "mockCatalog_%d.fits"
+                                        % (i + 1))) for i in range(MOCKS)]
+        out[dev] = {"secs": secs, "counts": read_counts(noise, detect),
+                    "cached": after.misses == before.misses,
+                    "grid": grids[0], "tabs": tabs}
+    c, p = out[device], out["cpu"]
+    if len(c["grid"]) == 0 or c["grid"].shape != p["grid"].shape:
+        raise RuntimeError("nemoMock: mass-function grids %s / %s"
+                           % (c["grid"].shape, p["grid"].shape))
+    pos = p["grid"] > 0
+    gridRel = float(np.max(np.abs(c["grid"][pos] / p["grid"][pos] - 1)))
+    nC = [len(t) for t in c["tabs"]]
+    nP = [len(t) for t in p["tabs"]]
+    if nC == nP:
+        colRel = max(float(np.max(np.abs(
+            np.asarray(g[k], dtype=float) - np.asarray(r[k], dtype=float))
+            / np.maximum(np.abs(np.asarray(r[k], dtype=float)), 1e-300)))
+            for g, r in zip(c["tabs"], p["tabs"])
+            for k in ("true_M500c", "true_fixed_y_c", "fixed_y_c",
+                      "redshift"))
+        rows = "the same rows (%s), max rel diff of true_M500c, " \
+               "true_fixed_y_c, fixed_y_c, redshift %.2e" % (nC, colRel)
+    else:
+        # a draw moved by the grid's last digits: hold the totals
+        colRel = 0.0
+        if abs(sum(nC) - sum(nP)) > 3 * np.sqrt(sum(nP)):
+            raise RuntimeError("nemoMock rows %s / %s" % (nC, nP))
+        rows = "rows %s / %s (a draw moved; totals within 3 sqrt(N))" % (
+            nC, nP)
+    launches = c["counts"]["boltzmann"]
+    if (device == "cuda" and (launches != 1 or c["counts"]["boltzmann_plain"]
+                              or c["cached"])) \
+            or gridRel > 1e-8 or colRel > 1e-6 or min(nC) == 0:
+        raise RuntimeError("nemoMock: card counts %s (cached %s), grid %.3e, "
+                           "columns %.3e, rows %s"
+                           % (c["counts"], c["cached"], gridRel, colRel, nC))
+    phase(16, "16c nemoMock -N %d -s %d on the DR5 selFn: --device %s %.2f s "
+          "(boltzmann_rk4 launches %d, plain calls %d, transfer from the "
+          "cache: %s), --device cpu %.2f s (plain solves %d, from the "
+          "cache: %s); mass-function grid %s card vs CPU max rel diff %.2e "
+          "(tolerance 1e-8: float64 both); %s (tolerance 1e-6) (%s)"
+          % (MOCKS, MOCK_SEED, device, c["secs"], launches,
+             c["counts"]["boltzmann_plain"], c["cached"], p["secs"],
+             p["counts"]["boltzmann_plain"], p["cached"],
+             "x".join(map(str, c["grid"].shape)), gridRel, rows, card))
+    return launches
+
+
+def catalog_check_phase(card, cfgPath, truth, device="cuda"):
+    """16d: ``nemoCatalogCheck`` of the smoke's truth catalog against the
+    DR5 run, on the card and on the CPU: the same printed counts and the
+    same in-mask and missed tables."""
+    import io
+    from nemo_tpu_torch.cli import nemoCatalogCheck_main
+    from nemo_tpu_torch.utils.tables import Table
+    work = os.path.join(WORK, "tools")
+    extPath = os.path.join(work, "truthCatalog.fits")
+    Table({"name": np.array(["SMOKE-T%04d" % i
+                             for i in range(len(truth["RADeg"]))]),
+           "RADeg": np.asarray(truth["RADeg"]),
+           "decDeg": np.asarray(truth["decDeg"])}).write(extPath)
+    out = {}
+    for dev in (device, "cpu"):
+        cwd = os.path.join(work, "check_" + dev)
+        shutil.rmtree(cwd, ignore_errors=True)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with working_directory(cwd), contextlib.redirect_stdout(buf):
+            nemoCatalogCheck_main.main([cfgPath, extPath, "--device", dev])
+        out[dev] = {"secs": time.perf_counter() - t0,
+                    "lines": [ln for ln in buf.getvalue().splitlines()
+                              if ln.startswith("...")],
+                    "files": sorted(os.listdir(cwd)), "dir": cwd}
+    c, p = out[device], out["cpu"]
+    if c["lines"] != p["lines"] or c["files"] != p["files"] \
+            or len(c["lines"]) < 4:
+        raise RuntimeError("nemoCatalogCheck card vs CPU:\n%s\n%s"
+                           % (c["lines"], p["lines"]))
+    for f in c["files"]:
+        if not f.endswith(".fits"):
+            continue
+        a = Table.read(os.path.join(c["dir"], f))
+        b = Table.read(os.path.join(p["dir"], f))
+        if sorted(a.keys()) != sorted(b.keys()) or len(a) != len(b) or any(
+                not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                for k in b.keys()):
+            raise RuntimeError("nemoCatalogCheck: %s differs" % f)
+    counts = [ln.split(" ")[1] for ln in c["lines"][:3]]
+    phase(16, "16d nemoCatalogCheck --device %s of %d truth clusters: in "
+          "the mask %s, found %s, missed %s; tables %s equal to the CPU "
+          "run's; %.2f s (CPU %.2f s) (%s)"
+          % (device, len(truth["RADeg"]), counts[0], counts[1], counts[2],
+             ", ".join(f for f in c["files"] if f.endswith(".fits")),
+             c["secs"], p["secs"], card))
+
+
+def extended_snr(config, policy):
+    """The plain reference of makeExtendedSourceMask's S/N: each band's
+    band-pass over its clipped noise, in float64 on the CPU, and the
+    S/N's float32 rounding bound (16 float32 ulps of the band's largest
+    |map| over its noise)."""
+    from nemo_tpu_torch import maps
+    s = config.parDict["findAndMaskExtended"]
+    out = []
+    for mapDict in config.unfilteredMapsDictList:
+        data, wcs = mapDict.loadTile("mapFileName", "PRIMARY",
+                                     returnWCS=True)
+        data = np.asarray(data, dtype=float)
+        band = maps.subtractBackground(data, wcs,
+                                       smoothScaleDeg=s["bigScaleDeg"],
+                                       policy=policy) \
+            - maps.subtractBackground(data, wcs,
+                                      smoothScaleDeg=s["smallScaleDeg"],
+                                      policy=policy)
+        mean, sigma = 0.0, 1e6
+        vals = band.ravel()
+        for _ in range(10):
+            sel = np.abs(vals - mean) < 3 * sigma
+            mean, sigma = np.mean(vals[sel]), np.std(vals[sel])
+        out.append((band / sigma, 16 * np.finfo(np.float32).eps
+                    * np.abs(data).max() / sigma))
+    return out
+
+
+def extended_phase(card, surveyDict, device="cuda"):
+    """16e: makeExtendedSourceMask on tile EXT_TILE of the survey with an
+    extended blob added, on the card (float32) and on the CPU (float64):
+    the masks equal but within a dilation of pixels whose S/N lies within
+    float32 rounding of the threshold."""
+    import torch
+    from nemo_tpu_torch import device as device_mod
+    from nemo_tpu_torch import maps, startup
+    from nemo_tpu_torch.ops import imageops
+    from nemo_tpu_torch.utils import fits as nfits
+    work = os.path.join(WORK, "tools", "extended")
+    os.makedirs(work, exist_ok=True)
+    parDict = startup.parseConfigDict(copy.deepcopy(with_filters(
+        surveyDict, [PHOT], outputDir=os.path.join(work, "cut"))))
+    cut = startup.NemoConfig(parDict, device="cpu", writeTileInfo=True)
+    amp, by, bx, sig = EXT_BLOB
+    entries = []
+    for mapDict in cut.unfilteredMapsDictList:
+        data, wcs = mapDict.loadTile("mapFileName", EXT_TILE,
+                                     returnWCS=True)
+        yy, xx = np.mgrid[:data.shape[0], :data.shape[1]]
+        data = np.asarray(data, dtype=float) + amp * np.exp(
+            -((yy - by) ** 2 + (xx - bx) ** 2) / (2 * sig ** 2))
+        path = os.path.join(work, "ext_%d.fits" % int(mapDict["obsFreqGHz"]))
+        nfits.write_image(path, data, wcs.header)
+        entries.append({"mapFileName": path, "weightsFileName": None,
+                        "obsFreqGHz": mapDict["obsFreqGHz"], "units": "uK",
+                        "beamFileName": mapDict["beamFileName"]})
+    masks, secs = {}, {}
+    for dev in (device, "cpu"):
+        d = {"unfilteredMaps": entries, "thresholdSigma": 5.0,
+             "minObjPix": 1, "removeRings": False, "photFilter": None,
+             "findAndMaskExtended": dict(EXT_SETTINGS),
+             "outputDir": os.path.join(work, "ext_" + dev),
+             "mapFilters": [{"label": "Beam", "class": "BeamMatchedFilter",
+                             "params": {"noiseParams": {
+                                 "method": "dataMap",
+                                 "noiseGridArcmin": 40.0},
+                                 "outputUnits": "uK",
+                                 "edgeTrimArcmin": 0.0}}]}
+        config = startup.NemoConfig(startup.parseConfigDict(d), device=dev,
+                                    writeTileInfo=True)
+        t0 = time.perf_counter()
+        masks[dev] = maps.makeExtendedSourceMask(config, "PRIMARY")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        written = os.path.join(config.diagnosticsDir, "extendedMask",
+                               "PRIMARY.fits")
+        if not os.path.exists(written) or any(
+                m["extendedMask"] != os.path.dirname(written)
+                for m in config.unfilteredMapsDictList):
+            raise RuntimeError("makeExtendedSourceMask on %s wrote or set "
+                               "no mask" % dev)
+    c, p = masks[device], masks["cpu"]
+    borderline = np.zeros(p.shape, dtype=bool)
+    for snr, tol in extended_snr(config, device_mod.CPU):
+        borderline |= np.abs(snr - EXT_SETTINGS["thresholdSigma"]) <= tol
+    reach = imageops.binary_dilate_cross(
+        torch.as_tensor(borderline), EXT_SETTINGS["dilationPix"]).numpy()
+    differ = c != p
+    if np.any(differ & ~reach) or p[by, bx] != 1 or not 0 < p.mean() < 0.25:
+        raise RuntimeError("makeExtendedSourceMask card vs CPU: %d pixels "
+                           "differ, %d away from the threshold; blob %d, "
+                           "masked share %.3f"
+                           % (differ.sum(), (differ & ~reach).sum(),
+                              p[by, bx], p.mean()))
+    phase(16, "16e makeExtendedSourceMask on %s + a %.0f uK blob (%d x %d): "
+          "--device %s %.3f s, CPU float64 %.3f s; %d pixels masked (%.2f%%),"
+          " %d differ from the CPU's, all within a dilation of the %d "
+          "pixels whose S/N is within float32 rounding of %.1f (%s)"
+          % (EXT_TILE, amp, p.shape[0], p.shape[1], device, secs[device],
+             secs["cpu"], int(p.sum()), 100 * p.mean(), int(differ.sum()),
+             int(borderline.sum()), EXT_SETTINGS["thresholdSigma"], card))
+
+
+def trace_top(path, n=5):
+    """The ``n`` longest device operations of a chrome trace (summed by
+    name: name, ms, calls) and the names of all of them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    tot = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            t = tot.setdefault(e["name"], [0.0, 0])
+            t[0] += e.get("dur", 0.0) / 1e3
+            t[1] += 1
+    top = sorted(tot.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k[:70], round(v[0], 3), v[1]) for k, v in top], list(tot)
+
+
+def profile_phase(noise, detect, card, surveyDict, device="cuda"):
+    """16f: ``nemo --profile`` on the survey with the two scales in two
+    chunks of PROFILE_BATCH tiles, beside the same run without the flag.
+    The engine's chunk counter is process-wide (as in the JAX package):
+    it is set to 0 before each run, so that the profiled run's chunk 1 is
+    its second chunk.  Returns the profiled run's catalog path."""
+    import torch
+    from nemo_tpu_torch.cli import nemo_main
+    from nemo_tpu_torch.parallel import engine
+    from nemo_tpu_torch.utils.tables import Table
+    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    out = {}
+    for tag, extra in (("plain", []), ("profiled", ["--profile"])):
+        cfgPath = tools_config(surveyDict, "profile_" + tag,
+                               deviceBatchSize=PROFILE_BATCH)
+        engine.PROFILE_CHUNK_DIR = None
+        engine._chunkCounter[0] = 0
+        GLOBAL_TIMER.__init__()
+        reset_counts(noise, detect)
+        t0 = time.perf_counter()
+        try:
+            nemo_main.main([cfgPath, "--device", device] + extra)
+        finally:
+            engine.PROFILE_CHUNK_DIR = None
+        if device == "cuda":
+            torch.cuda.synchronize()
+        outDir = os.path.join(WORK, "tools", "profile_" + tag)
+        out[tag] = {"secs": time.perf_counter() - t0,
+                    "counts": read_counts(noise, detect),
+                    "chunks": engine._chunkCounter[0],
+                    "cat": os.path.join(outDir, "profile_%s_optimalCatalog"
+                                        ".fits" % tag),
+                    "trace": os.path.join(outDir, "diagnostics", "profile",
+                                          "trace.json")}
+    p, q = out["profiled"], out["plain"]
+    diff = same_catalog(Table.read(p["cat"]), Table.read(q["cat"]))
+    if not os.path.exists(p["trace"]) or os.path.exists(q["trace"]) \
+            or p["chunks"] != 2 or diff != 0.0:
+        raise RuntimeError("nemo --profile: trace %s, %d chunks, catalogs "
+                           "differ by %.3e" % (os.path.exists(p["trace"]),
+                                               p["chunks"], diff))
+    top, names = trace_top(p["trace"])
+    ours = {k: any(k in n for n in names) for k in ("rms_cells",
+                                                    "label_kernel")}
+    if device == "cuda" and not all(ours.values()):
+        raise RuntimeError("the profile names no %s" % ours)
+    phase(16, "16f nemo --profile --device %s, %d tiles x %d scales in "
+          "chunks of %d: %.2f s (without the flag %.2f s), catalogs bitwise "
+          "the same; chunk 1's trace %s (%.1f MiB) names %s; its five "
+          "longest device operations (name, ms, calls): %s (%s)"
+          % (device, len(surveyDict["tileDefinitions"]), len(SIM_LABELS),
+             PROFILE_BATCH, p["secs"], q["secs"],
+             os.path.relpath(p["trace"], WORK),
+             os.path.getsize(p["trace"]) / 2 ** 20,
+             ", ".join(k for k, v in ours.items() if v), json.dumps(top),
+             card))
+    return p["cat"]
+
+
+def tools_phase(noise, detect, card, surveyDict, truth, catPath, cfgPath,
+                selFnDir, device="cuda"):
+    """Phase 16, the survey's tools on the card: 16a-b nemoSpec on the
+    two-scale catalog ``catPath``, 16c nemoMock on ``selFnDir``, 16d
+    nemoCatalogCheck on the run of ``cfgPath``, 16e the extended-source
+    mask, 16f nemo --profile.  Returns the kernels' launches on the
+    nemoSpec and nemoMock paths."""
+    t0 = time.perf_counter()
+    targets, nTargets = spec_targets(catPath)
+    specLaunches = spec_phase(noise, detect, card, surveyDict, targets,
+                              device)
+    mockLaunches = mock_phase(noise, detect, card, selFnDir, device)
+    catalog_check_phase(card, cfgPath, truth, device)
+    extended_phase(card, surveyDict, device)
+    profile_phase(noise, detect, card, surveyDict, device)
+    phase(16, "phase 16 in %.1f s (%s)" % (time.perf_counter() - t0, card))
+    return {"rms_cells": specLaunches, "boltzmann": mockLaunches}
+
+
+def tools_only():
+    """Phases 1, 2, 7, 10 and 16 alone on fresh inputs, for a change on
+    the tools' paths: the survey, its DR5 epilogue run (phase 10, whose
+    selFn/ feeds nemoMock) and a batched two-scale run whose catalog feeds
+    nemoSpec; prints the card, no ``ok`` line.  The CPU nemoMock solves
+    the Boltzmann transfer with the plain version (minutes).  ``python3 -c
+    'import chip_smoke; chip_smoke.tools_only()'``"""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, ROOT)
+    from nemo_tpu_torch import cuda_build
+    from nemo_tpu_torch.models import boltzmann
+    from nemo_tpu_torch.ops import detect, noise
+    tStart = time.perf_counter()
+    card = nvidia_smi()
+    phase(1, "card: %s | torch %s | CUDA %s" % (card, torch.__version__,
+                                                torch.version.cuda))
+    sources = ("rms_cells.cu", "label_components.cu", "boltzmann_rk4.cu")
+    cuda_build.build(sources)
+    noise.load_kernel()
+    detect.load_label_kernel()
+    boltzmann.load_kernel()
+    phase(2, "build: %s in %.2f s" % (", ".join(sources),
+                                      time.perf_counter() - tStart))
+    shutil.rmtree(WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    surveyDict, truth = survey_inputs(os.path.join(WORK, "survey"))
+    phase(7, "survey inputs in %.1f s" % (time.perf_counter() - t0))
+    cfgPath, _, dr5Out, _ = epilogue_phase(noise, detect, card, surveyDict,
+                                           truth)
+    outName = "two_scales"
+    run_search(with_filters(surveyDict, SIM_LABELS), "cuda", outName)
+    launches = tools_phase(
+        noise, detect, card, surveyDict, truth,
+        os.path.join(WORK, outName, "%s_optimalCatalog.fits" % outName),
+        cfgPath, os.path.join(dr5Out, "selFn"))
+    print("launches on the tools' paths %s; total %.1f s"
+          % (json.dumps(launches), time.perf_counter() - tStart))
+    print(card)
+
+
 def realspace_only():
     """Phases 1, 2 (rms_cells and label_components), rms_cells against its
     plain version (phase 3's first check), 7 and 15 alone, for a
@@ -3043,6 +3592,10 @@ def main():
     conv, rsCounts = realspace_phase(noise, detect, card, surveyDict,
                                      surveyTruth)
     phase(15, "phase 15 in %.1f s" % (time.perf_counter() - t0))
+    toolLaunches = tools_phase(
+        noise, detect, card, surveyDict, surveyTruth,
+        os.path.join(WORK, "rs_warm", "rs_warm_optimalCatalog.fits"),
+        cfgPath, os.path.join(dr5Out, "selFn"))
 
     errs, flips, ms, bms, by = rms[("step", "float32")]
     ms1 = rms[("nT1", "float32")][2]
@@ -3066,6 +3619,7 @@ def main():
         "launches_nemo_I": injCounts[0]["rms_cells"],
         "launches_injection_reruns": injCounts[1]["rms_cells"],
         "launches_realspace_run": rsCounts["rms_cells"],
+        "launches_nemoSpec_matchedFilter": toolLaunches["rms_cells"],
         "ms_nT1": ms1["staged"],
         "ms_nT1_streaming": ms1["streaming"], "plain_ms_nT1": ms1["plain"],
         "ms_realspace_layout": msRs["staged"],
@@ -3087,6 +3641,7 @@ def main():
         "replaces": "nemo_tpu/models/boltzmann.py:555 (XLA lax.scan, not a "
                     "TPU kernel)",
         "launches": dr5Counts["boltzmann"],
+        "launches_nemoMock": toolLaunches["boltzmann"],
         "max_abs_err": boltz["max_abs_err_24576_plain"],
         "ms": boltz["ms24576"], "plain_ms": boltz["plain_ms24576"],
         "bound_ms": boltz["bound_ms24576"],

@@ -2,13 +2,14 @@
 """nemo command (PyTorch port): filter maps and find clusters / sources.
 
 Same flags and output layout as ``nemo_tpu.cli.nemo_main``, plus
-``--device``.  Runs the filter and catalog stage (per tile, or batched over
-tiles with ``useDeviceBatching: true``), then the epilogue as the JAX CLI
-does: the Q fit (``fitQ``), the RMS tables, the fRel weights and the fused
-selection-function products, the stitched and quick-look maps, with ``-I``
-(or ``sourceInjectionTest``) the source-injection test and its position
-recovery analysis, and with ``-S`` (or ``calcSelFn``) the completeness and
-mass-limit maps.
+``--device``; ``--profile`` traces one warm chunk of the batched engine
+into ``diagnostics/profile/trace.json``.  Runs the filter and catalog
+stage (per tile, or batched over tiles with ``useDeviceBatching: true``),
+then the epilogue as the JAX CLI does: the Q fit (``fitQ``), the RMS
+tables, the fRel weights and the fused selection-function products, the
+stitched and quick-look maps, with ``-I`` (or ``sourceInjectionTest``) the
+source-injection test and its position recovery analysis, and with ``-S``
+(or ``calcSelFn``) the completeness and mass-limit maps.
 
     python -m nemo_tpu_torch.cli.nemo_main config.yml --device cuda
 """
@@ -60,6 +61,12 @@ def makeParser():
     parser.add_argument("--profile-dir", dest="profileDir", default=None,
                         help="Capture a torch.profiler trace of the "
                              "filtering stage into this directory.")
+    parser.add_argument("--profile", dest="profileChunk",
+                        action="store_true", default=False,
+                        help="Capture ONE warm tile-chunk's device trace "
+                             "into diagnostics/profile/ (per-chunk "
+                             "budgets land in diagnostics/"
+                             "chunk_budgets.jsonl regardless).")
     return parser
 
 
@@ -90,6 +97,10 @@ def main(argv=None):
             config.rootOutDir, "%s_optimalCatalog.csv"
             % os.path.split(config.rootOutDir)[-1])
 
+    if args.profileChunk:
+        from nemo_tpu_torch.parallel import engine as batch_engine
+        batch_engine.PROFILE_CHUNK_DIR = os.path.join(
+            config.diagnosticsDir, "profile")
     if not os.path.exists(optimalCatalogFileName):
         with profile_trace(args.profileDir):
             optimalCatalog = pipelines.filterMapsAndMakeCatalogs(

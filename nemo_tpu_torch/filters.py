@@ -48,9 +48,12 @@ from .utils.timing import GLOBAL_TIMER
 def filterMaps(unfilteredMapsDictList, filterParams, tileName,
                diagnosticsDir=".", selFnDir=".", verbose=True,
                undoPixelWindow=True, useCachedFilter=False,
-               returnFilter=False, policy=device_mod.CPU):
+               returnFilter=False, policy=None):
     """Build and apply a filter to the unfiltered map(s) for one tile,
-    including the pixel-window deconvolution of the output signal map."""
+    including the pixel-window deconvolution of the output signal map.
+    ``policy`` defaults to the card (:func:`device.policy`, which raises
+    when there is none)."""
+    policy = policy or device_mod.policy("cuda")
     f = filterParams
     label = f["label"] + "#" + tileName
     if verbose:
@@ -88,16 +91,17 @@ class MapFilter:
 
     def __init__(self, label, unfilteredMapsDictList, paramsDict,
                  tileName="PRIMARY", diagnosticsDir=None, selFnDir=None,
-                 geometryOnly=False, policy=device_mod.CPU):
+                 geometryOnly=False, policy=None):
         """``geometryOnly=True`` skips the per-tile map preprocessing and
         derives (shape, wcs) from the tile coords alone, for consumers that
-        only load + apply a cached filter."""
+        only load + apply a cached filter.  ``policy`` defaults to the
+        card."""
         self.label = label
         self.params = dict(paramsDict)
         self.tileName = tileName
         self.diagnosticsDir = diagnosticsDir
         self.selFnDir = selFnDir
-        self.policy = policy
+        self.policy = policy or device_mod.policy("cuda")
         if diagnosticsDir is not None:
             self.filterFileName = os.path.join(
                 diagnosticsDir, tileName,

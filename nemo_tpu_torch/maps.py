@@ -153,12 +153,13 @@ def _readFullCached(path):
 class MapDict(dict):
     """A sky-map descriptor + per-tile preprocessing, mirroring
     ``nemo/maps.py:47-476``.  ``policy`` is the device the preprocess
-    steps' torch work runs on (default: the CPU)."""
+    steps' torch work runs on (default: the card; :func:`device.policy`
+    raises when there is none)."""
 
     def __init__(self, inputDict, tileCoordsDict=None, policy=None):
         super().__init__(inputDict)
         self.tileCoordsDict = tileCoordsDict
-        self.policy = policy or device_mod.CPU
+        self.policy = policy or device_mod.policy("cuda")
         self._maskKeys = ["pointSourceMask", "surveyMask", "flagMask",
                           "extendedMask"]
         self.validMapKeys = ["mapFileName", "weightsFileName"] + self._maskKeys
@@ -487,7 +488,8 @@ class MapDict(dict):
 
 
 class MapDictList:
-    """List of MapDicts sharing a tileCoordsDict (``maps.py:478-499``)."""
+    """List of MapDicts sharing a tileCoordsDict (``maps.py:478-499``) and
+    a policy (default: the card)."""
 
     def __init__(self, mapDictList, tileCoordsDict=None, policy=None):
         self.mapDicts = [MapDict(m, tileCoordsDict=tileCoordsDict,
@@ -684,9 +686,8 @@ def chunkLoadMask(fileName, numChunks=8, dtype=np.uint8):
 def smoothMap(data, wcs, RADeg="centre", decDeg="centre",
               smoothScaleDeg=5.0 / 60.0, policy=None):
     """Gaussian smoothing with a sky-scale kernel, on ``policy``'s device
-    (host numpy in and out)."""
-    from . import device as device_mod
-    policy = policy or device_mod.CPU
+    (the card unless a CPU policy is given; host numpy in and out)."""
+    policy = policy or device_mod.policy("cuda")
     ra0, dec0 = wcs.getCentreWCSCoords()
     if RADeg != "centre":
         ra0 = float(RADeg)
@@ -704,7 +705,8 @@ def smoothMap(data, wcs, RADeg="centre", decDeg="centre",
 
 def subtractBackground(data, wcs, RADeg="centre", decDeg="centre",
                        smoothScaleDeg=30.0 / 60.0, policy=None):
-    """High-pass via difference of Gaussians."""
+    """High-pass via difference of Gaussians, the smoothing on
+    ``policy``'s device (the card unless a CPU policy is given)."""
     return data - smoothMap(data, wcs, RADeg=RADeg, decDeg=decDeg,
                             smoothScaleDeg=smoothScaleDeg, policy=policy)
 
@@ -798,8 +800,9 @@ def addWhiteNoise(mapData, noisePerPix, seed=None):
 
 def convolveMapWithBeam(data, wcs, beam, maxDistDegrees=1.0, policy=None):
     """Beam-convolve a map: an exact multiply by B_ell in Fourier space, on
-    ``policy``'s device (host numpy in and out)."""
-    P = policy or device_mod.CPU
+    ``policy``'s device (the card unless a CPU policy is given; host numpy
+    in and out)."""
+    P = policy or device_mod.policy("cuda")
     if isinstance(beam, str):
         beam = BeamProfile(beamFileName=beam)
     pix = pixScalesRad(wcs, data.shape)
@@ -816,7 +819,7 @@ def makeModelImage(shape, wcs, catalog, beamFileName, obsFreqGHz=None,
                    validAreaSection=None, minSNR=-99, TCMBAlpha=0,
                    asDevice=False, policy=None):
     """Paint model clusters or point sources into a blank map, on
-    ``policy``'s device (default the CPU).
+    ``policy``'s device (the card unless a CPU policy is given).
 
     Three routes, as the reference: clusters with one ``override`` model
     (z, M500) for every row, painted together with per-row amplitudes
@@ -825,7 +828,7 @@ def makeModelImage(shape, wcs, catalog, beamFileName, obsFreqGHz=None,
     Returns None when no object lies in the map (or in
     ``validAreaSection``), else the (float64, writable) host map, or with
     ``asDevice`` the tensor on the policy's device."""
-    P = policy or device_mod.CPU
+    P = policy or device_mod.policy("cuda")
     if isinstance(catalog, str):
         catalog = Table.read(catalog)
     catalog = catalogs.getCatalogWithinImage(catalog, shape, wcs)
@@ -1043,6 +1046,75 @@ def stitchTilesQuickLook(filePattern, outFileName, outWCS, outShape,
     nfits.write_image(outFileName, outData * fluxRescale, outWCS.header,
                       compressionType="RICE_1")
     return outData
+
+
+def makeExtendedSourceMask(config, tileName):
+    """Find extended sources via a difference-of-Gaussians band-pass and
+    threshold, writing a per-tile extended mask and wiring it into the
+    config's map dicts (``maps.py:2474-2533``).
+
+    The two background subtractions and the dilation run on
+    ``config.policy``'s device; the global clip, the median and the
+    size cut (``scipy.ndimage.label``) on the host, as in the JAX
+    package."""
+    from scipy import ndimage
+
+    P = config.policy
+    settings = config.parDict["findAndMaskExtended"]
+    maskCube = []
+    wcs = None
+    for mapDict in config.unfilteredMapsDictList:
+        data, wcs = mapDict.loadTile("mapFileName", tileName, returnWCS=True)
+        data = np.asarray(data, dtype=float)
+        weights = mapDict.loadTile("weightsFileName", tileName) \
+            if mapDict.get("weightsFileName") else np.ones(data.shape)
+        weights = np.asarray(weights, dtype=float)
+        if weights.ndim == 3:
+            weights = weights[0]
+        valid = weights > 0
+        whiteNoiseLevel = np.zeros(weights.shape)
+        whiteNoiseLevel[valid] = 1 / np.sqrt(weights[valid])
+        # Band-pass to isolate extended scales
+        s = subtractBackground(data, wcs,
+                               smoothScaleDeg=settings["bigScaleDeg"],
+                               policy=P) \
+            - subtractBackground(data, wcs,
+                                 smoothScaleDeg=settings["smallScaleDeg"],
+                                 policy=P)
+        # Global 3-sigma clipped noise, scaled by the white-noise map
+        mean, sigma = 0.0, 1e6
+        vals = s.ravel()
+        for _ in range(10):
+            sel = np.abs(vals - mean) < 3 * sigma
+            mean, sigma = np.mean(vals[sel]), np.std(vals[sel])
+        med = np.median(whiteNoiseLevel[valid])
+        if med > 0:
+            whiteNoiseLevel[valid] *= sigma / med
+        snr = np.zeros(s.shape)
+        snr[valid] = s[valid] / whiteNoiseLevel[valid]
+        extendedMask = (snr > settings["thresholdSigma"]).astype(np.uint8)
+        if settings.get("dilationPix", 0) > 0:
+            extendedMask = imageops.binary_dilate_cross(
+                torch.as_tensor(extendedMask > 0, device=P.device),
+                settings["dilationPix"]).cpu().numpy().astype(np.uint8)
+        maskCube.append(extendedMask)
+    extendedMask = (np.sum(maskCube, axis=0) > 0).astype(np.uint8)
+
+    if settings.get("minSizeArcmin2", 0) > 0:
+        arcmin2Map = getPixelAreaArcmin2Map(extendedMask.shape, wcs)
+        segMap, numObjects = ndimage.label(extendedMask)
+        for i in range(1, numObjects + 1):
+            sel = segMap == i
+            if arcmin2Map[sel].sum() < settings["minSizeArcmin2"]:
+                extendedMask[sel] = 0
+
+    outDir = os.path.join(config.diagnosticsDir, "extendedMask")
+    os.makedirs(outDir, exist_ok=True)
+    nfits.write_image(os.path.join(outDir, tileName + ".fits"),
+                      extendedMask, wcs.header, compressionType="PLIO_1")
+    for mapDict in config.unfilteredMapsDictList:
+        mapDict["extendedMask"] = outDir
+    return extendedMask
 
 
 def stitchTiles(config):
@@ -1491,3 +1563,10 @@ def estimateContamination(contamSimDict, imageDict, SNRKeys, label,
                 diagnosticsDir, "contaminationEstimate_%s_%s.fits"
                 % (label, SNRKey)))
     return out
+
+
+def saveFITS(outputFileName, mapData, wcs, compressionType=None):
+    """Write a map to FITS with NEMOVER provenance (``maps.py:2371``)."""
+    nfits.write_image(outputFileName, mapData,
+                      wcs.header if wcs is not None else None,
+                      compressionType=compressionType)

@@ -34,6 +34,10 @@ true shape (no FFT padding: the convolution reflects at the genuine tile
 edge), and each chunk goes through
 :func:`.distribute.make_realspace_step` (band-summed convolution, grid RMS,
 S/N, edge trim); detection stays on the host for them.
+
+The ``nemo`` CLI's ``--profile`` sets :data:`PROFILE_CHUNK_DIR`: the
+Fourier route's chunk of index :data:`_PROFILE_CHUNK_INDEX` (the first
+warm one) then runs under a torch.profiler trace written there.
 """
 
 import functools
@@ -50,7 +54,7 @@ from ..models import sz
 from ..ops import fourier
 from ..ops import noise as noise_ops
 from ..ops import paint as paint_ops
-from ..utils.timing import GLOBAL_TIMER
+from ..utils.timing import GLOBAL_TIMER, profile_trace
 from .distribute import (make_matched_filter_step, make_realspace_step,
                          subpixel_read_batch)
 
@@ -618,12 +622,13 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
             for label in labels:
                 for n in sub:
                     staged[label].pop(n, None)
-            _process_bucket(config, ctx, gridSize, trimPix,
-                            undoPixelWindow, verbose, results,
-                            consume=consume, detectParams=detectParams,
-                            chunkIdx=run["chunk"],
-                            diagnosticsDir=diagnosticsDir,
-                            stageWait=_filedWait())
+            _process_bucket_shared(config, ctx, gridSize, trimPix,
+                                   undoPixelWindow, verbose, results,
+                                   consume=consume,
+                                   detectParams=detectParams,
+                                   chunkIdx=run["chunk"],
+                                   diagnosticsDir=diagnosticsDir,
+                                   stageWait=_filedWait())
 
     def _flush_rs(label, key, names):
         _, _, gridSize, trimPix = key
@@ -1063,6 +1068,28 @@ def _finish_label_lean(config, st, names, out, gridSize, label, tPhase,
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# One warm chunk's trace (the CLI's --profile): chunk 0 pays the first
+# calls' costs (kernel loads, cuFFT plans), so chunk 1 is traced.  The
+# counter counts Fourier-route chunks over the whole process, as in the JAX
+# package: a caller that runs the engine again in one process and wants a
+# trace resets it.
+PROFILE_CHUNK_DIR = None
+_PROFILE_CHUNK_INDEX = 1
+_chunkCounter = [0]
+
+
+def _process_bucket_shared(*args, **kwargs):
+    """:func:`_process_bucket`, traced into :data:`PROFILE_CHUNK_DIR` when
+    it is set and this is the process's chunk of index
+    :data:`_PROFILE_CHUNK_INDEX`."""
+    idx = _chunkCounter[0]
+    _chunkCounter[0] += 1
+    if PROFILE_CHUNK_DIR and idx == _PROFILE_CHUNK_INDEX:
+        with profile_trace(PROFILE_CHUNK_DIR):
+            return _process_bucket(*args, **kwargs)
+    return _process_bucket(*args, **kwargs)
 
 
 def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,

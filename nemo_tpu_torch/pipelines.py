@@ -9,7 +9,9 @@ device too, and streams each result into the same catalog stage.  The
 cached-filter, cached-RMS-map and cached-filtered-map reruns (source
 injection, forced photometry, nemoMass) reload the saved filters and
 selection-function products, and :func:`makeRMSTables` writes the
-noise-area tables the selection function reads.
+noise-area tables the selection function reads.  :func:`makeMockClusterCatalog`
+draws mock catalogs from a selection function (``nemoMock``) and
+:func:`extractSpec` extracts SEDs at catalog positions (``nemoSpec``).
 """
 
 import os
@@ -479,3 +481,335 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
             verbose=verbose, consume=consume, detectParams=detectParams,
             diagnosticsDir=diagnosticsDir,
             useCachedFilters=useCachedFilters)
+
+
+def makeMockClusterCatalog(config, numMocksToMake=1, combineMocks=False,
+                           writeCatalogs=True, writeInfo=True, verbose=True,
+                           QSource="fit"):
+    """Generate mock cluster catalogs (``pipelines.py:454-641``).
+
+    The mass function's Boltzmann transfer is solved on
+    ``config.policy``'s device (the ``boltzmann_rk4`` kernel on the card,
+    unless this process has already solved it for the same cosmology);
+    the draws are host numpy, one generator fed through every tile in tile
+    order, as in the JAX package."""
+    from . import completeness
+    from .mock import MockSurvey
+    from .models.qfit import QFit
+    from .utils.wcs import WCS
+
+    os.makedirs(config.mocksDir, exist_ok=True)
+    applyPoissonScatter = config.parDict.get("applyPoissonScatter", True)
+    applyIntrinsicScatter = config.parDict.get("applyIntrinsicScatter", True)
+    applyNoiseScatter = config.parDict.get("applyNoiseScatter", True)
+
+    Q = QFit(QSource=QSource, selFnDir=config.selFnDir,
+             tileNames=config.allTileNames)
+    photFilterLabel = config.parDict["photFilter"]
+    thresholdSigma = config.parDict["thresholdSigma"]
+    scalingRelationDict = config.parDict["massOptions"]
+
+    RMSTab = Table.read(os.path.join(config.selFnDir, "RMSTab.fits"))
+    RMSMapDict = {}
+    wcsDict = {}
+    areaDeg2Dict = {}
+    totalAreaDeg2 = 0.0
+    rmsMEF = os.path.join(config.selFnDir,
+                          "RMSMap_%s.fits" % photFilterLabel)
+    perTile = not os.path.exists(rmsMEF)
+    for tileName in config.tileNames:
+        if perTile:
+            RMSMapDict[tileName], wcsDict[tileName] = completeness.loadRMSMap(
+                tileName, config.selFnDir, photFilterLabel)
+        else:
+            data, header = nfits.read_image(rmsMEF, ext=tileName)
+            RMSMapDict[tileName] = np.asarray(data)
+            wcsDict[tileName] = WCS(header)
+        sel = np.asarray(RMSTab["tileName"]) == tileName
+        areaDeg2 = float(np.sum(np.asarray(RMSTab["areaDeg2"])[sel]))
+        areaDeg2Dict[tileName] = areaDeg2
+        totalAreaDeg2 += areaDeg2
+
+    seed = config.parDict.get("seed", None)
+
+    massOptions = config.parDict["massOptions"]
+    mockSurvey = MockSurvey(5e13, totalAreaDeg2, 0.0, 2.0,
+                            massOptions["H0"], massOptions["Om0"],
+                            massOptions["Ob0"], massOptions["sigma8"],
+                            massOptions["ns"], delta=massOptions["delta"],
+                            rhoType=massOptions["rhoType"],
+                            enableDrawSample=True,
+                            transferFunction=massOptions.get(
+                                "transferFunction", "boltzmann_camb"),
+                            device=config.policy.device)
+
+    catList = []
+    rng = np.random.default_rng(seed)
+    for i in range(numMocksToMake):
+        mockTabsList = []
+        for tileName in config.tileNames:
+            if RMSMapDict[tileName].sum() == 0 or \
+                    areaDeg2Dict[tileName] < 0.5:
+                continue
+            mockTab = mockSurvey.drawSample(
+                RMSMapDict[tileName], scalingRelationDict, QFit=Q,
+                wcs=wcsDict[tileName], photFilterLabel=photFilterLabel,
+                tileName=tileName, makeNames=True, SNRLimit=thresholdSigma,
+                applySNRCut=True, areaDeg2=areaDeg2Dict[tileName],
+                applyPoissonScatter=applyPoissonScatter,
+                applyIntrinsicScatter=applyIntrinsicScatter,
+                applyNoiseScatter=applyNoiseScatter,
+                rng=rng)
+            if mockTab is not None and len(mockTab) > 0:
+                mockTabsList.append(mockTab)
+        tab = vstack(mockTabsList)
+        catList.append(tab)
+        if writeCatalogs:
+            mockFileName = os.path.join(config.mocksDir,
+                                        "mockCatalog_%d.csv" % (i + 1))
+            tab.meta["QSOURCE"] = QSource
+            catalogs.writeCatalog(tab, mockFileName)
+            catalogs.writeCatalog(tab, mockFileName.replace(".csv", ".fits"))
+
+    if combineMocks:
+        tab = vstack(catList)
+        tab.meta["QSOURCE"] = QSource
+        tab.write(os.path.join(config.mocksDir,
+                               "mockCatalog_combined.fits"))
+
+    if writeInfo:
+        mockKeys = ["massOptions", "makeMockCatalogs", "applyPoissonScatter",
+                    "applyIntrinsicScatter", "applyNoiseScatter"]
+        with open(os.path.join(config.mocksDir, "mockParameters.txt"),
+                  "w") as f:
+            for m in mockKeys:
+                if m in config.parDict:
+                    f.write("%s: %s\n" % (m, config.parDict[m]))
+    return catList
+
+
+def extractSpec(config, tab, method="CAP", diskRadiusArcmin=4.0,
+                highPassFilter=False, estimateErrors=True,
+                saveFilteredMaps=False):
+    """Spectral energy distribution extraction at catalog positions
+    (``pipelines.py:644-1051``).
+
+    Maps are first PSF-matched to the lowest-resolution beam, moved to the
+    front: W(l) = B_ref(l) / B(l), zeroed where B(l) falls below 10%, is
+    made on the host and applied by an rfft2, a multiply and an irfft2 on
+    ``config.policy``'s device.
+
+    Methods: 'CAP' (compensated aperture photometry, Schaan et al. 2020
+    style) or 'matchedFilter' (per-template matched filter, Saro et al.
+    2014 style).
+    """
+    from .models.beams import BeamProfile
+    from .ops import fourier
+
+    P = config.policy
+    # Reference beam = lowest resolution; reorder maps so it's first
+    beams_ = [BeamProfile(beamFileName=m["beamFileName"])
+              for m in config.unfilteredMapsDictList]
+    refIndex = int(np.argmax([b.FWHMArcmin for b in beams_]))
+    mapsList = list(config.unfilteredMapsDictList)
+    mapsList.insert(0, mapsList.pop(refIndex))
+    beams_.insert(0, beams_.pop(refIndex))
+    refBeam = beams_[0]
+
+    def _psf_match(data, wcs, beam):
+        pix = maps.pixScalesRad(wcs, data.shape)
+        lmap = np.asarray(fourier.rmodlmap(data.shape, pix))
+        Bl = np.interp(lmap, beam.ell, beam.Bell, right=0.0)
+        Bref = np.interp(lmap, refBeam.ell, refBeam.Bell, right=0.0)
+        W = np.where(Bl > 0.1, Bref / np.where(Bl > 0.1, Bl, 1.0), 0.0)
+        fm = fourier.rfft2(P.tensor(data))
+        return fourier.irfft2(fm * P.tensor(W), data.shape).cpu().numpy()
+
+    if method == "CAP":
+        return _extractSpecCAP(config, tab, mapsList, beams_, _psf_match,
+                               diskRadiusArcmin=diskRadiusArcmin,
+                               highPassFilter=highPassFilter,
+                               estimateErrors=estimateErrors)
+    elif method == "matchedFilter":
+        return _extractSpecMatchedFilter(config, tab, mapsList, beams_,
+                                         _psf_match,
+                                         saveFilteredMaps=saveFilteredMaps)
+    raise ValueError("method must be 'CAP' or 'matchedFilter'")
+
+
+def _extractSpecCAP(config, tab, mapsList, beams_, psf_match,
+                    diskRadiusArcmin=4.0, highPassFilter=False,
+                    estimateErrors=True, rng=None):
+    """Compensated-aperture photometry SED (``pipelines.py:973-1050``):
+    host numpy apart from ``psf_match`` and the high-pass filter's
+    smoothing, which run on ``config.policy``'s device."""
+    from .models import sz
+    rng = rng or np.random.default_rng(707)
+    innerR = diskRadiusArcmin
+    outerR = diskRadiusArcmin * np.sqrt(2)
+    catalogList = []
+    for tileName in config.tileNames:
+        mapDictList = []
+        freqLabels = []
+        for i, mapDict in enumerate(mapsList):
+            md = mapDict.copy()
+            md.preprocess(tileName=tileName)
+            if i > 0:
+                md["data"] = psf_match(md["data"], md["wcs"], beams_[i])
+            if highPassFilter:
+                md["data"] = maps.subtractBackground(
+                    md["data"], md["wcs"], smoothScaleDeg=(2 * outerR) / 60,
+                    policy=config.policy)
+            freqLabels.append(int(round(md["obsFreqGHz"])))
+            mapDictList.append(md)
+        wcs = mapDictList[0]["wcs"]
+        shape = mapDictList[0]["data"].shape
+        pixAreaMap = maps.getPixelAreaArcmin2Map(shape, wcs)
+        maxSizeDeg = (outerR * 1.2) / 60
+        tileTab = catalogs.getCatalogWithinImage(tab, shape, wcs)
+        if len(tileTab) == 0:
+            continue
+        for label in freqLabels:
+            tileTab["diskT_uKArcmin2_%s" % label] = np.zeros(len(tileTab))
+            tileTab["err_diskT_uKArcmin2_%s" % label] = \
+                np.zeros(len(tileTab))
+            tileTab["diskSNR_%s" % label] = np.zeros(len(tileTab))
+
+        def cap_flux(ra, dec, d):
+            degreesMap = np.full(shape, 1e6)
+            degreesMap, _, _ = maps.makeDegreesDistanceMap(
+                degreesMap, wcs, ra, dec, maxSizeDeg)
+            inner = degreesMap < innerR / 60
+            outer = (degreesMap >= innerR / 60) & (degreesMap < outerR / 60)
+            return (d[inner] * pixAreaMap[inner]).sum() \
+                - (d[outer] * pixAreaMap[outer]).sum()
+
+        for i in range(len(tileTab)):
+            ra = float(np.asarray(tileTab["RADeg"])[i])
+            dec = float(np.asarray(tileTab["decDeg"])[i])
+            for md, label in zip(mapDictList, freqLabels):
+                tileTab["diskT_uKArcmin2_%s" % label][i] = \
+                    cap_flux(ra, dec, md["data"])
+
+        if estimateErrors:
+            randTab = catalogs.generateRandomSourcesCatalog(
+                mapDictList[0]["surveyMask"], wcs, 500,
+                seed=rng.integers(0, 2 ** 31 - 1))
+            randFluxes = {label: np.zeros(len(randTab))
+                          for label in freqLabels}
+            for i in range(len(randTab)):
+                ra = float(np.asarray(randTab["RADeg"])[i])
+                dec = float(np.asarray(randTab["decDeg"])[i])
+                for md, label in zip(mapDictList, freqLabels):
+                    randFluxes[label][i] = cap_flux(ra, dec, md["data"])
+            for label in freqLabels:
+                SNRSign = -1 if sz.fSZ(float(label)) < 0 else 1
+                noise = np.percentile(np.abs(randFluxes[label]), 68.3)
+                tileTab["err_diskT_uKArcmin2_%s" % label] = noise
+                tileTab["diskSNR_%s" % label] = SNRSign * np.asarray(
+                    tileTab["diskT_uKArcmin2_%s" % label]) / noise
+        catalogList.append(tileTab)
+    return vstack(catalogList)
+
+
+def _extractSpecMatchedFilter(config, tab, mapsList, beams_, psf_match,
+                              saveFilteredMaps=False,
+                              noiseMethod="dataMap"):
+    """Per-template matched-filter SED (``pipelines.py:873-970``).
+
+    Each (tile, template) filter is built from the reference band on
+    ``config.policy``'s device; every further band is PSF-matched,
+    filtered, its grid RMS taken (the ``rms_cells`` kernel on the card)
+    and its pixel window undone there too.  Forced photometry, flux
+    measurement and the cross-match are host numpy.  The filter caches go
+    under ``nemoSpecCache/<basename of rootOutDir>`` in the working
+    directory, as in the JAX package."""
+    import copy as copy_mod
+
+    from .ops import fourier
+    from .utils.wcs import WCS
+
+    P = config.policy
+    cacheDir = os.path.join("nemoSpecCache",
+                            os.path.basename(config.rootOutDir))
+    os.makedirs(cacheDir, exist_ok=True)
+
+    baseFilter = {"class": "ArnaudModelMatchedFilter",
+                  "params": {"noiseParams": {"method": noiseMethod,
+                                             "noiseGridArcmin": 40.0},
+                             "saveFilteredMaps": bool(saveFilteredMaps),
+                             "saveRMSMap": False,
+                             "savePlots": False, "saveDS9Regions": False,
+                             "saveFilter": False, "outputUnits": "yc",
+                             "edgeTrimArcmin": 0.0,
+                             "GNFWParams": "default"}}
+    filtersList = []
+    for t in np.unique(np.asarray(tab["template"])):
+        newDict = copy_mod.deepcopy(baseFilter)
+        newDict["params"]["M500MSun"] = float(
+            str(t).split("_M")[-1].split("_")[0])
+        newDict["params"]["z"] = float(
+            str(t).split("_z")[-1].replace("p", "."))
+        newDict["label"] = str(t)
+        filtersList.append(newDict)
+
+    catalogList = []
+    for tileName in config.tileNames:
+        diagnosticsDir = os.path.join(cacheDir, tileName)
+        os.makedirs(diagnosticsDir, exist_ok=True)
+        for f in filtersList:
+            tempTileTab = None
+            filterObj = None
+            filteredMapDict = None
+            for i, mapDict in enumerate(mapsList):
+                if tempTileTab is None:
+                    header = config.tileCoordsDict[tileName]["header"]
+                    wcs = WCS(header)
+                    shape = (wcs.naxis2, wcs.naxis1)
+                    tempTileTab = catalogs.getCatalogWithinImage(tab, shape,
+                                                                 wcs)
+                    tempTileTab = tempTileTab[
+                        np.asarray(tempTileTab["template"]) == f["label"]]
+                if tempTileTab is None or len(tempTileTab) == 0:
+                    continue
+                if i == 0:
+                    filteredMapDict, filterObj = filters.filterMaps(
+                        [mapDict], f, tileName,
+                        diagnosticsDir=diagnosticsDir, selFnDir=cacheDir,
+                        verbose=False, undoPixelWindow=True,
+                        returnFilter=True, policy=P)
+                else:
+                    md = mapDict.copy()
+                    md.preprocess(tileName=tileName)
+                    matched = psf_match(md["data"], md["wcs"], beams_[i])
+                    filtered = filterObj.applyFilter(
+                        np.stack([matched]))
+                    RMSMap = np.asarray(filterObj.makeNoiseMap(filtered))
+                    SNMap = np.zeros(filtered.shape)
+                    mask = RMSMap > 0
+                    SNMap[mask] = filtered[mask] / RMSMap[mask]
+                    filteredMapDict = dict(filteredMapDict)
+                    filteredMapDict["SNMap"] = SNMap
+                    filteredMapDict["data"] = fourier.apply_pixel_window(
+                        P.tensor(filtered), pow=-1.0).cpu().numpy()
+                freqTileTab = photometry.makeForcedPhotometryCatalog(
+                    filteredMapDict, tempTileTab,
+                    useInterpolator=config.parDict["useInterpolator"])
+                photometry.measureFluxes(
+                    freqTileTab, filteredMapDict, cacheDir,
+                    useInterpolator=config.parDict["useInterpolator"],
+                    ycObsFreqGHz=mapDict["obsFreqGHz"])
+                if len(freqTileTab) == 0:
+                    tempTileTab = None
+                    continue
+                tempTileTab, freqTileTab, rDeg = catalogs.crossMatch(
+                    tempTileTab, freqTileTab, radiusArcmin=2.5)
+                suff = "_%d" % mapDict["obsFreqGHz"]
+                for colName in ("deltaT_c", "y_c", "SNR"):
+                    tempTileTab[colName + suff] = freqTileTab[colName]
+                    if "err_" + colName in freqTileTab.keys():
+                        tempTileTab["err_" + colName + suff] = \
+                            freqTileTab["err_" + colName]
+            if tempTileTab is not None and len(tempTileTab) > 0:
+                catalogList.append(tempTileTab)
+    return vstack(catalogList)

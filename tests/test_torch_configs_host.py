@@ -21,6 +21,7 @@ import yaml
 from nemo_tpu import pipelines as jpipelines
 from nemo_tpu import startup as jstartup
 from nemo_tpu_torch import catalogs, maps, pipelines, startup
+from nemo_tpu_torch.device import CPU
 from nemo_tpu_torch.models import beams
 from nemo_tpu_torch.utils import fits as nfits
 from nemo_tpu_torch.utils import wcs as nwcs
@@ -62,8 +63,8 @@ def sim(tmp_path_factory):
         beamPath = os.path.join(work, "beam_%s.txt" % band)
         beams.makeGaussianBeamFile(beamPath, fwhm)
         sky = maps.makeModelImage(SHAPE, w, clusters, beamPath,
-                                  obsFreqGHz=freq) \
-            + maps.makeModelImage(SHAPE, w, sources, beamPath) \
+                                  obsFreqGHz=freq, policy=CPU) \
+            + maps.makeModelImage(SHAPE, w, sources, beamPath, policy=CPU) \
             + rng.normal(0, noise, SHAPE)
         path = os.path.join(work, "sim_%s.fits" % band)
         nfits.write_image(path, sky, w.header)

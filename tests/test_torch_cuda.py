@@ -613,3 +613,71 @@ def test_realspace_step_on_card_matches_cpu(cuda_card):
                                    atol=1e-9 * np.abs(r).max())
     np.testing.assert_array_equal(got["surveyMask"].cpu().numpy(),
                                   ref["surveyMask"].numpy())
+
+
+def spec_config(work, seed=2028, shape=(300, 420)):
+    """A seeded two-band tile with six cluster-like decrements, written as
+    FITS, its config dict (one tile) and the targets table."""
+    from nemo_tpu_torch import startup
+    from nemo_tpu_torch.models import beams
+    from nemo_tpu_torch.utils import fits as nfits
+    from nemo_tpu_torch.utils import wcs as nwcs
+    from nemo_tpu_torch.utils.tables import Table
+    rng = np.random.default_rng(seed)
+    w = nwcs.makeWCS(shape, 0.5 / 60.0, centreRADeg=30.0, centreDecDeg=0.0)
+    yy, xx = np.mgrid[:shape[0], :shape[1]]
+    ys = rng.uniform(40, shape[0] - 40, 6)
+    xs = rng.uniform(40, shape[1] - 40, 6)
+    entries = []
+    for band, freq, fwhm, noise, amp in (("f150", 149.6, 1.4, 20.0, -400.0),
+                                         ("f090", 97.8, 2.1, 30.0, -600.0)):
+        data = rng.normal(0, noise, shape)
+        for y, x in zip(ys, xs):
+            data += amp * np.exp(-((yy - y) ** 2 + (xx - x) ** 2)
+                                 / (2 * 4.0 ** 2))
+        path = str(work / ("spec_%s.fits" % band))
+        nfits.write_image(path, data, w.header)
+        beamPath = str(work / ("beam_%s.txt" % band))
+        beams.makeGaussianBeamFile(beamPath, fwhm)
+        entries.append({"mapFileName": path, "obsFreqGHz": freq,
+                        "units": "uK", "beamFileName": beamPath})
+    cfg = {"unfilteredMaps": entries, "thresholdSigma": 4.0, "minObjPix": 1,
+           "useInterpolator": True, "removeRings": False,
+           "photFilter": None, "outputDir": str(work / "spec"),
+           "mapFilters": []}
+    ra, dec = np.array([w.pix2wcs(x, y) for x, y in zip(xs, ys)]).T
+    tab = Table({"name": np.array(["S%d" % i for i in range(6)]),
+                 "RADeg": ra, "decDeg": dec,
+                 "template": np.array(["Arnaud_M2e14_z0p4",
+                                       "Arnaud_M4e14_z0p2"] * 3)})
+    return startup.parseConfigDict(cfg), tab
+
+
+@pytest.mark.cuda
+def test_extract_spec_matched_filter_on_card_matches_cpu(cuda_card, tmp_path,
+                                                         monkeypatch):
+    """extractSpec -m matchedFilter on the card (float32) against the CPU
+    port (float64): y_c and S/N per band within 1e-4 relative; the grid RMS
+    launches rms_cells once per (tile, template, band)."""
+    import copy
+    from nemo_tpu_torch import pipelines, startup
+    cfg, tab = spec_config(tmp_path)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.chdir(tmp_path)
+        config = startup.NemoConfig(copy.deepcopy(cfg), device=dev,
+                                    writeTileInfo=True)
+        launches = tn.rms_cells.launches
+        out[dev] = pipelines.extractSpec(config, tab, method="matchedFilter")
+        out[dev + "_launches"] = tn.rms_cells.launches - launches
+    assert out["cpu_launches"] == 0
+    assert out["cuda_launches"] == 2 * 2
+    got, ref = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(np.asarray(got["name"]),
+                                  np.asarray(ref["name"]))
+    cols = [k for k in ref.keys() if k.startswith(("y_c_", "SNR_"))]
+    assert len(cols) == 4 and len(got) == 6
+    for col in cols:
+        np.testing.assert_allclose(np.asarray(got[col]),
+                                   np.asarray(ref[col]), rtol=1e-4,
+                                   err_msg=col)

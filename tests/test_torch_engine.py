@@ -317,6 +317,47 @@ def test_cli_tiled_batched_run(survey, tmp_path, capsys):
     assert stitched.shape == SHAPE
 
 
+def test_cli_profile_traces_one_warm_chunk(survey, tmp_path, monkeypatch):
+    """``nemo --profile``: the process's Fourier-route chunk of index 1 (the
+    second of two chunks of two tiles) runs under torch.profiler and its
+    trace lands in ``diagnostics/profile/trace.json``; no other chunk is
+    traced.  The counter is process-wide, as in the JAX package, so a
+    second run in the process traces nothing; its catalog equals the
+    profiled run's."""
+    from nemo_tpu_torch.cli import nemo_main
+    monkeypatch.setattr(engine, "PROFILE_CHUNK_DIR", None)
+    monkeypatch.setattr(engine, "_chunkCounter", [0])
+    traced = []
+    real = engine.profile_trace
+
+    def recording(logdir):
+        traced.append((engine._chunkCounter[0] - 1, logdir))
+        return real(logdir)
+
+    monkeypatch.setattr(engine, "profile_trace", recording)
+    cats = {}
+    for name, extra in (("profiled", ["--profile"]), ("plain", [])):
+        cfg = copy.deepcopy(survey["cfg"])
+        cfg.update(useDeviceBatching=True, useDeviceDetection=False,
+                   outputDir=str(tmp_path / name))
+        path = str(tmp_path / (name + ".yml"))
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        nemo_main.main([path, "--device", "cpu"] + extra)
+        cats[name] = Table.read(str(tmp_path / name
+                                    / ("%s_optimalCatalog.fits" % name)))
+    profileDir = str(tmp_path / "profiled" / "diagnostics" / "profile")
+    assert traced == [(1, profileDir)]
+    assert engine._chunkCounter[0] == 4
+    with open(os.path.join(profileDir, "trace.json")) as f:
+        assert len(json.load(f)["traceEvents"]) > 0
+    assert len(cats["plain"]) == len(cats["profiled"]) > 0
+    for col in cats["plain"].keys():
+        np.testing.assert_array_equal(np.asarray(cats["profiled"][col]),
+                                      np.asarray(cats["plain"][col]),
+                                      err_msg=col)
+
+
 def test_mixed_bank_streams_and_matches(survey, tmp_path):
     """A host-only filter (the percentile RMS estimator) in a batched run
     runs tile-locally inside the streaming sink; nothing accumulates in

@@ -83,7 +83,10 @@ def test_port_imports_no_jax_and_no_nemo_tpu():
                 "nemo_tpu_torch.plotSettings",
                 "nemo_tpu_torch.cli.nemoMass_main",
                 "nemo_tpu_torch.ops.grf", "nemo_tpu_torch.ops.sht",
-                "nemo_tpu_torch.cli.nemoModel_main"):
+                "nemo_tpu_torch.cli.nemoModel_main",
+                "nemo_tpu_torch.cli.nemoMock_main",
+                "nemo_tpu_torch.cli.nemoSpec_main",
+                "nemo_tpu_torch.cli.nemoCatalogCheck_main"):
         assert mod in lines["NAMES"].split(), mod
     assert lines["HITS"] == "[]"
     assert lines["LEAKED"] == "[]"
@@ -172,7 +175,7 @@ COPIED_FUNCTIONS = [("maps.py", name) for name in (
     "pixScaleXRadPerRow", "maxAbsDecDeg", "resolveSimMethod",
     "estimateContaminationFromInvertedMaps",
     "estimateContaminationFromSkySim", "plotContamination",
-    "estimateContamination")] + [
+    "estimateContamination", "saveFITS")] + [
     ("ops/sht.py", name) for name in (
         "_lgc_table", "car_ring_geometry", "ring_weights")] + [
     ("ops/grf.py", "dec_band_count"),

@@ -37,6 +37,7 @@ from nemo_tpu import startup as jstartup
 from nemo_tpu.parallel import distribute as jdist
 from nemo_tpu.parallel.mesh import get_mesh
 from nemo_tpu_torch import filters, maps, pipelines, startup
+from nemo_tpu_torch.device import CPU
 from nemo_tpu_torch.models import beams
 from nemo_tpu_torch.ops import paint
 from nemo_tpu_torch.parallel import distribute
@@ -244,12 +245,13 @@ def test_make_model_image_matches_jax(sky, route):
     args = (SHAPE, sky["wcs"], sky[key], sky["maps"][0]["beamFileName"])
     ref = jmaps.makeModelImage(*args, obsFreqGHz=149.6, **kw)
     with recording_paint([]) as hostLog:
-        got = maps.makeModelImage(*args, obsFreqGHz=149.6, **kw)
+        got = maps.makeModelImage(*args, obsFreqGHz=149.6, policy=CPU,
+                                  **kw)
     assert got.dtype == np.float64 and got.flags.writeable
     close(got, ref, 1e-10)
     with recording_paint([]) as devLog:
         dev = maps.makeModelImage(*args, obsFreqGHz=149.6, asDevice=True,
-                                  **kw)
+                                  policy=CPU, **kw)
     assert isinstance(dev, torch.Tensor)
     np.testing.assert_array_equal(
         dev.numpy(), got,
@@ -260,7 +262,8 @@ def test_make_model_image_outside_the_map_is_none(sky):
     far = Table({"RADeg": np.array([200.0]), "decDeg": np.array([40.0]),
                  "deltaT_c": np.array([100.0])})
     assert maps.makeModelImage(SHAPE, sky["wcs"], far,
-                               sky["maps"][0]["beamFileName"]) is None
+                               sky["maps"][0]["beamFileName"],
+                               policy=CPU) is None
 
 
 # -- map operations ------------------------------------------------------------------
@@ -276,7 +279,7 @@ def test_map_operation_matches_jax(sky, op):
     data = np.asarray(data, dtype=np.float64)
     w = sky["wcs"]
     out, holes = {}, {}
-    for tag, mod in (("jax", jmaps), ("torch", maps)):
+    for tag, mod, kw in (("jax", jmaps, {}), ("torch", maps, {"policy": CPU})):
         if op == "addWhiteNoise":
             out[tag] = mod.addWhiteNoise(data, 12.0, seed=5)
         elif op.startswith("maskOutSources"):
@@ -293,7 +296,7 @@ def test_map_operation_matches_jax(sky, op):
             out[tag] = mod.convertToDeltaT(data * 1e-6, obsFrequencyGHz=220.0)
         else:
             out[tag] = mod.convolveMapWithBeam(
-                data, w, sky["maps"][1]["beamFileName"])
+                data, w, sky["maps"][1]["beamFileName"], **kw)
     assert not np.array_equal(out["torch"], data)
     close(out["torch"], out["jax"], 1e-10)
     if holes:
@@ -328,9 +331,9 @@ def test_preprocess_branch_matches_jax(sky, branch):
     d = dict(sky["maps"][0], **branch_options(sky, branch))
     j = jmaps.MapDict(copy.deepcopy(d))
     j.preprocess("PRIMARY")
-    t = maps.MapDict(copy.deepcopy(d))
+    t = maps.MapDict(copy.deepcopy(d), policy=CPU)
     t.preprocess("PRIMARY")
-    plain = maps.MapDict(dict(sky["maps"][0]))
+    plain = maps.MapDict(dict(sky["maps"][0]), policy=CPU)
     plain.preprocess("PRIMARY")
     # the branch changed the map, and the port changed it as JAX did
     assert not np.allclose(t["data"], plain["data"])
@@ -347,11 +350,11 @@ def test_cmb_substitution_names_its_roadmap_item(sky):
     are; the same seed gives the same sky, another seed another.  Its
     parity with the JAX package is held in tests/test_torch_sims.py."""
     def preprocessed(seed):
-        d = maps.MapDict(dict(sky["maps"][0], CMBSimSeed=seed))
+        d = maps.MapDict(dict(sky["maps"][0], CMBSimSeed=seed), policy=CPU)
         d.preprocess("PRIMARY")
         return np.asarray(d["data"])
     a, b, c = preprocessed(3), preprocessed(3), preprocessed(4)
-    raw = maps.MapDict(dict(sky["maps"][0]))
+    raw = maps.MapDict(dict(sky["maps"][0]), policy=CPU)
     raw.preprocess("PRIMARY")
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c) and not np.array_equal(a, raw["data"])
@@ -371,12 +374,13 @@ def test_noise_model_catalog_filter_matches_jax(sky):
                     "outputUnits": "uK", "edgeTrimArcmin": 5.0,
                     "noiseModelCatalog": [sky["sources"]]}}
     out = {}
-    for tag, mod, mk in (("jax", jfilters, jmaps.MapDict),
-                         ("torch", filters, maps.MapDict)):
-        mapDicts = [mk(dict(m)) for m in sky["maps"]]
+    for tag, mod, mk, kw in (
+            ("jax", jfilters, jmaps.MapDict, {}),
+            ("torch", filters, maps.MapDict, {"policy": CPU})):
+        mapDicts = [mk(dict(m), **kw) for m in sky["maps"]]
         out[tag] = mod.filterMaps(mapDicts, copy.deepcopy(f), "PRIMARY",
                                   diagnosticsDir=None, selFnDir=None,
-                                  verbose=False, returnFilter=True)
+                                  verbose=False, returnFilter=True, **kw)
     (jres, jobj), (tres, tobj) = out["jax"], out["torch"]
     close(tobj.filt.numpy(), np.asarray(jobj.filt), 1e-9)
     for key in ("data", "SNMap"):
@@ -384,11 +388,11 @@ def test_noise_model_catalog_filter_matches_jax(sky):
     # the catalog did change the filter
     plainF = copy.deepcopy(f)
     plainF["params"].pop("noiseModelCatalog")
-    _, plainObj = filters.filterMaps([maps.MapDict(dict(m))
+    _, plainObj = filters.filterMaps([maps.MapDict(dict(m), policy=CPU)
                                       for m in sky["maps"]], plainF,
                                      "PRIMARY", diagnosticsDir=None,
                                      selFnDir=None, verbose=False,
-                                     returnFilter=True)
+                                     returnFilter=True, policy=CPU)
     assert not np.allclose(plainObj.filt.numpy(), tobj.filt.numpy())
 
 
@@ -476,8 +480,8 @@ def multipass(tmp_path_factory):
                      template=np.array(["Arnaud_M2e14_z0p4"] * 5))
     sources = table(6, deltaT_c=rng.uniform(2000, 8000, 6))
     sky = maps.makeModelImage(MP_SHAPE, w, clusters, beamPath,
-                              obsFreqGHz=149.6) \
-        + maps.makeModelImage(MP_SHAPE, w, sources, beamPath) \
+                              obsFreqGHz=149.6, policy=CPU) \
+        + maps.makeModelImage(MP_SHAPE, w, sources, beamPath, policy=CPU) \
         + rng.normal(0, 30.0, MP_SHAPE)
     simPath = os.path.join(work, "sim_f150.fits")
     nfits.write_image(simPath, sky, w.header)
