@@ -8,6 +8,8 @@
                                         # phases 1, 2, 7, 15 and rms_cells
     python3 -c 'import chip_smoke; chip_smoke.tools_only()'
                                         # phases 1, 2, 7, 10 and 16
+    python3 -c 'import chip_smoke; chip_smoke.mesh_only()'
+                                        # phases 1, 2, 7 and 17
 
 Builds the port's CUDA kernels from the checkout, holds each against its
 plain torch version at the main paths' shapes, then runs the one-tile cluster
@@ -22,7 +24,9 @@ through ``nemo -I`` (the source-injection test); then the simulated skies
 on a survey at dec -47: model-noise filtering, the sky-sim contamination
 estimate and ``nemoModel``; then the real-space (DR3-style) search on the
 survey; then the survey's tools: ``nemoSpec``, ``nemoMock``,
-``nemoCatalogCheck``, the extended-source mask and ``nemo --profile``.
+``nemoCatalogCheck``, the extended-source mask and ``nemo --profile``;
+then the survey again on a device mesh of every card (two shards on one
+card).
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result):
@@ -42,10 +46,10 @@ non-zero and prints no result):
     mask, an empty mask and a serpentine that splits at 128 passes, with
     n_iter 128, 4000 and 37; boltzmann_rk4 on the 160-k splice grid at
     nGrid 4,096 (rtol 1e-9), timed plain, kernel, kernel, and at the
-    production nGrid 24,576 against its plain version and the JAX
-    package's table in tests/data (rtol 1e-9), each call's time beside
-    the kernel's own, and the kernel's time a step beside the length of
-    its dependent chain (latencies from the source's probe);
+    production nGrid 24,576 against its plain version (on the CPU) and
+    the JAX package's table in tests/data (rtol 1e-9), each call's time
+    beside the kernel's own, and the kernel's time a step beside the
+    length of its dependent chain (latencies from the source's probe);
   4 inputs: seeded CMB + white noise + ~20 Arnaud clusters, written as
     FITS with beam files under _smoke_work/;
   5 the main path on the card (cuda, float32), with the kernel's launch
@@ -144,7 +148,24 @@ non-zero and prints no result):
     added blob, card against CPU float64 but within a dilation of pixels
     at the threshold; (f) ``nemo --profile`` on two chunks of 8 tiles,
     the trace written and naming both kernels, the catalog bitwise that
-    of the same run without the flag, its five longest device operations.
+    of the same run without the flag, its five longest device operations;
+ 17 the mesh: every card, or two virtual shards on cuda:0 with one card
+    (printed as mesh=): (a) the sharded benchmark step (float64, 16 tiles
+    of 896 x 1536, trim 240) on the mesh against one shard, the survey
+    histogram and candidate count exactly equal; (b) phase 7's survey with
+    the 16-scale bank and device detection through batchFilterTilesMulti
+    on the mesh, cold and warm: seconds by phase and each shard's step
+    seconds, rms_cells and label_components launched on each shard's
+    device with no plain call, every cluster at fixed_SNR >= 5 in the
+    mesh run or phase 8's warm run found by both within 0.1' and rtol
+    5e-3 in fixed_y_c, and whether the catalogs are bitwise the same; (c)
+    the photometry filters held on their shards' devices and read onto
+    cuda:0; (d) with two cards or more, two processes of one card each
+    joined over NCCL by multihost.initialize_from_env: the benchmark
+    step's survey statistics reduced over the processes equal one
+    process's over a two-card mesh.  Phase 10 also reports fitQ's filters read from the device
+    cache, the FITS writes deferred, and a second fitQ with a cache of
+    budget 0 giving a bitwise-equal QFit.fits.
 The last lines are the convolution's JSON record (a library call), the
 kernels' JSON record, the card's name and power limit, and {"ok": true,
 "device": {...}}.
@@ -556,7 +577,8 @@ def check_boltzmann(boltzmann, cosmology, card):
     """The Boltzmann kernel against its plain version on the 160-k splice
     grid at nGrid 4,096, timed plain, kernel, kernel (the plain version
     once: it takes ~40 s), then at the main path's nGrid 24,576 against
-    the plain version (one run) and the JAX package's committed table.
+    the plain version (one run, on the CPU) and the JAX package's
+    committed table.
     All compared at rtol 1e-9: both versions read the same per-step table
     and do the same float64 arithmetic in the same order, the kernel with
     its lanes' operations in another grouping of the batch (~1e-12 over
@@ -623,9 +645,13 @@ def check_boltzmann(boltzmann, cosmology, card):
     res["kernel_ms24576_one_k"] = time_ms(
         lambda: boltzmann._launch(k1, tab24, bg24), 1)
     del tab24
-    # the plain version once at the main path's nGrid (~4 minutes: its
-    # time is the ~1,000 small launches of each of the 24,575 steps)
-    (Tp24, Rp24), tp = timed(lambda: boltzmann._transfer_plain(k24, bg24))
+    # the plain version once at the main path's nGrid, on the CPU in
+    # float64: on the card its time is the ~1,000 small launches of each
+    # of the 24,575 steps (~4 minutes), on the CPU about half that
+    t0 = time.perf_counter()
+    Tp24, Rp24 = (x.numpy() for x in boltzmann._transfer_plain(k24.cpu(),
+                                                                bg24))
+    tp = 1e3 * (time.perf_counter() - t0)
     Tref, Rref = np.array(ref["T"]), np.array(ref["R0"])
     np.testing.assert_allclose(T24, Tref, rtol=1e-9, atol=0,
                                err_msg="nGrid 24576 vs the JAX table")
@@ -657,7 +683,8 @@ def check_boltzmann(boltzmann, cosmology, card):
     phase(3, "boltzmann_rk4 160 k: nGrid 4096 call %.3f ms (kernel %.3f "
           "ms; with nvcc's division %.3f ms), plain %.1f ms, max rel err vs "
           "plain %.2e; nGrid 24576 call %.3f ms (kernel %.3f ms; with "
-          "nvcc's division %.3f ms, T bitwise equal), plain %.1f ms, max "
+          "nvcc's division %.3f ms, T bitwise equal), plain (CPU) %.1f "
+          "ms, max "
           "rel err vs plain %.2e, vs the JAX table %.2e; bound %.4f / %.4f "
           "ms (%s: %.3g / %.3g float64 operations), call at %.3f%% of it "
           "at 24576 (%s)"
@@ -779,9 +806,10 @@ def make_inputs(device="cuda"):
 
 # -- phases 5 and 6 ----------------------------------------------------------------
 
-def run_search(configDict, device, outName):
+def run_search(configDict, device, outName, mesh=None):
     """NemoConfig -> filterMapsAndMakeCatalogs -> catalog files, as the
-    CLI runs it; returns (catalog, seconds, stage seconds)."""
+    CLI runs it (``mesh``: the batched engine's, default every card);
+    returns (catalog, seconds, stage seconds)."""
     import copy
     from nemo_tpu_torch import pipelines, startup
     from nemo_tpu_torch.cli import nemo_main
@@ -791,7 +819,8 @@ def run_search(configDict, device, outName):
     parDict["outputDir"] = os.path.join(WORK, outName)
     GLOBAL_TIMER.__init__()
     t0 = time.perf_counter()
-    config = startup.NemoConfig(parDict, device=device, writeTileInfo=True)
+    config = startup.NemoConfig(parDict, device=device, writeTileInfo=True,
+                                mesh=mesh)
     catalog = pipelines.filterMapsAndMakeCatalogs(
         config, writeAreaMask=True, writeFlagMask=True, verbose=False)
     if device == "cuda":
@@ -972,6 +1001,8 @@ def chunk_budget(outDir):
     out["devices"] = sorted({r["device"] for r in recs})
     out["chunks"] = len(recs)
     out["nTiles"] = [r["nTiles"] for r in recs]
+    out["shards"] = [r.get("shards") for r in recs]
+    out["shardStep"] = [r.get("shardStep") for r in recs]
     return out
 
 
@@ -982,7 +1013,9 @@ def reset_counts(noise, detect):
     noise.rms_cells.largest_nT = 0
     noise.rms_cells.variant_launches.update(staged=0, streaming=0)
     noise._rms_cells_plain.calls = 0
+    noise.rms_cells.device_launches.clear()
     detect.label_components_batch.launches = 0
+    detect.label_components_batch.device_launches.clear()
     detect._label_components_plain.calls = 0
     boltzmann.transfer_function.launches = 0
     boltzmann._transfer_plain.calls = 0
@@ -1235,12 +1268,23 @@ def epilogue_phase(noise, detect, card, surveyDict, truth, device="cuda"):
     from nemo_tpu_torch.utils.tables import Table
     from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
 
+    from nemo_tpu_torch.parallel import filtercache
+
     cfgPath, d, outDir = epilogue_config(surveyDict, truth)
     nTiles = len(d["tileDefinitions"])
     GLOBAL_TIMER.__init__()
+    deferred = []
+
+    def count_deferred(orig):
+        def run(fileName, *a):
+            deferred.append(fileName)
+            return orig(fileName, *a)
+        return run
+
     reset_counts(noise, detect)
     t0 = time.perf_counter()
-    nemo_main.main([cfgPath, "-S", "--device", device])
+    with patched((filtercache, "register_deferred", count_deferred)):
+        nemo_main.main([cfgPath, "-S", "--device", device])
     if device == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1285,6 +1329,44 @@ def epilogue_phase(noise, detect, card, surveyDict, truth, device="cuda"):
         recs = [json.loads(line) for line in f]
     qrecs = [r for r in recs if r.get("stage") == "fitQ"]
     route = "tile-batched" if qrecs else "per-tile"
+    cacheLoads = qrecs[-1]["cum"]["cacheLoads"] if qrecs else None
+    if device == "cuda" and (cacheLoads != nTiles
+                             or len(deferred) != nTiles):
+        raise RuntimeError("DR5 epilogue run: fitQ read %s filters from "
+                           "the device cache, %d FITS writes deferred (%d "
+                           "tiles)" % (cacheLoads, len(deferred), nTiles))
+    # the same fit with a cache of budget 0: every filter from its FITS
+    from nemo_tpu_torch import startup
+    saved = filtercache.DEVICE_CACHE
+    filtercache.DEVICE_CACHE = filtercache.DeviceFilterCache(maxBytes=0)
+    try:
+        config = startup.NemoConfig(startup.parseConfigDict(
+            copy.deepcopy(d)), device=device)
+        config.selFnDir = os.path.join(WORK, "dr5", "qfit_nocache")
+        os.makedirs(config.selFnDir, exist_ok=True)
+        t1 = time.perf_counter()
+        qfit.fitQ(config)
+        secsNoCache = time.perf_counter() - t1
+    finally:
+        filtercache.DEVICE_CACHE = saved
+    with open(os.path.join(config.diagnosticsDir,
+                           "chunk_budgets.jsonl")) as f:
+        cumNoCache = [json.loads(line) for line in f][-1].get("cum", {})
+    noCache = qfit_tables(os.path.join(config.selFnDir, "QFit.fits"))
+    if device == "cuda" and cumNoCache.get("cacheLoads") != 0:
+        raise RuntimeError("fitQ with a cache of budget 0 read %s filters "
+                           "from it" % cumNoCache.get("cacheLoads"))
+    if sorted(noCache) != sorted(qtabs) or any(
+            not np.array_equal(noCache[t], qtabs[t]) for t in qtabs):
+        raise RuntimeError("fitQ from the FITS differs from fitQ from the "
+                           "device cache")
+    phase(10, "fitQ's filters: %s of %d from the device cache (%d FITS "
+          "writes deferred until fitQ released them), loadFilter %.3f s; "
+          "with a cache of budget 0: loadFilter %.3f s, fitQ %.2f s, "
+          "QFit.fits bitwise the same (%s)"
+          % (cacheLoads, nTiles, len(deferred),
+             qrecs[-1]["cum"]["loadFilter"] if qrecs else float("nan"),
+             cumNoCache.get("loadFilter", float("nan")), secsNoCache, card))
     phase(10, "nemo -S on %s, %d tiles x %d scales with the DR5 epilogue: "
           "%.2f s; stages (s) %s; fitQ route %s, chunks of %s tiles, "
           "budget %s; launches and plain calls %s (%s)"
@@ -3341,6 +3423,318 @@ def tools_phase(noise, detect, card, surveyDict, truth, catPath, cfgPath,
     return {"rms_cells": specLaunches, "boltzmann": mockLaunches}
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+MESH_VIRTUAL = 2     # shards on cuda:0 when the machine has one card
+TILE_STEP_TRIM = 240     # bench.py's trimPix
+
+
+def survey_mesh(device="cuda"):
+    """Every card, or MESH_VIRTUAL virtual shards on cuda:0 when there is
+    only one (on the CPU, for a rehearsal: MESH_VIRTUAL CPU shards)."""
+    import torch
+    from nemo_tpu_torch.parallel import mesh
+    if device == "cpu":
+        return mesh.get_mesh(MESH_VIRTUAL, device="cpu")
+    if torch.cuda.device_count() > 1:
+        return mesh.get_mesh()
+    return mesh.get_mesh(devices=["cuda:0"] * MESH_VIRTUAL)
+
+
+def sync(devices):
+    import torch
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def device_counts(noise, detect):
+    return {"rms_cells": dict(noise.rms_cells.device_launches),
+            "label_components":
+            dict(detect.label_components_batch.device_launches)}
+
+
+def tile_step_batch(dev, nT=16, seed=SEED + 17):
+    """The benchmark step's arguments on ``dev``: nT seeded two-band
+    float64 tiles of SHAPE with 12 compact sources each, a centred
+    template, weights, apodisation and masks."""
+    import torch
+    from nemo_tpu_torch.ops import fourier
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ny, nx = SHAPE
+    data = torch.randn((nT, 2, ny, nx), generator=g, device=dev,
+                       dtype=torch.float64)
+    yy = torch.arange(ny, device=dev, dtype=torch.float64)[:, None]
+    xx = torch.arange(nx, device=dev, dtype=torch.float64)[None, :]
+    tmpl = torch.exp(-((yy - ny / 2) ** 2 + (xx - nx / 2) ** 2)
+                     / (2 * 2.5 ** 2))
+    pos = torch.rand((nT, 12, 2), generator=g, device=dev,
+                     dtype=torch.float64)
+    for t in range(nT):
+        for y, x in pos[t].tolist():
+            y, x = 300 + y * (ny - 600), 300 + x * (nx - 600)
+            data[t] += 8.0 * torch.exp(-((yy - y) ** 2 + (xx - x) ** 2)
+                                       / (2 * 2.5 ** 2))
+    return (data, data, tmpl.expand(nT, 2, ny, nx).contiguous(),
+            torch.tensor([1.0, 0.8], dtype=torch.float64, device=dev),
+            fourier.apod_mask(SHAPE, 20, device=dev),
+            torch.ones((nT, ny, nx), dtype=torch.float64, device=dev),
+            torch.ones((nT, ny, nx), dtype=torch.float64, device=dev))
+
+
+def place(sharding, args, idx=slice(None)):
+    """The step's arguments as shards (w and apodM shared), of the tiles
+    ``idx``."""
+    return [sharding.put(a[idx]) if i not in (3, 4) else a
+            for i, a in enumerate(args)]
+
+
+def mesh_tile_step(noise, card, m):
+    """17a: the sharded benchmark step (float64) on the mesh against one
+    shard on the mesh's first device (:func:`tile_step_batch`): the
+    survey histogram and candidate count equal exactly, the S/N maps
+    within 1e-9 of the largest; the step's seconds on each."""
+    import torch
+    from nemo_tpu_torch.parallel import distribute, mesh
+    dev = m.devices[0]
+    args = tile_step_batch(dev)
+    nT, _, ny, nx = args[0].shape
+    out, secs = {}, {}
+    for tag, mm in (("one", mesh.get_mesh(devices=[dev])), ("mesh", m)):
+        placed = place(mesh.tile_sharding(mm), args)
+        step = distribute.make_sharded_tile_step(mm, GRID_PIX,
+                                                 TILE_STEP_TRIM, topK=64)
+        step(*placed)                           # warm-up: plans, kernels
+        sync(mm.devices)
+        t0 = time.perf_counter()
+        out[tag] = step(*placed)
+        sync(mm.devices)
+        secs[tag] = time.perf_counter() - t0
+    a, b = out["one"], out["mesh"]
+    hist = np.array_equal(a["surveyRMSHist"].cpu().numpy(),
+                          b["surveyRMSHist"].cpu().numpy())
+    count = int(a["surveyCandidateCount"]) == int(b["surveyCandidateCount"])
+    snA = torch.cat([x.to(dev) for x in a["SNMap"]])
+    snB = torch.cat([x.to(dev) for x in b["SNMap"]])
+    snDiff = float((snA - snB).abs().max() / snA.abs().max())
+    if not (hist and count) or snDiff > 1e-9:
+        raise RuntimeError("tile step on the mesh: histogram equal %s, "
+                           "count equal %s, S/N %.3e" % (hist, count, snDiff))
+    phase(17, "17a sharded tile step, %d x 2 x %d x %d float64 (gridSize "
+          "%d, trim %d): one shard %.3f s, %d shards %.3f s (per shard "
+          "%s s); survey histogram and candidate count (%d) the same, "
+          "max |S/N diff| %.2e of the largest (%s)"
+          % (nT, ny, nx, GRID_PIX, TILE_STEP_TRIM, secs["one"], m.size,
+             secs["mesh"], [round(t.seconds(), 4) for t in b["stepTimer"]],
+             int(b["surveyCandidateCount"]), snDiff, card))
+
+
+def _mesh_process(rank, port, out):
+    """17d's worker: join the two-process group through
+    multihost.initialize_from_env (NCCL), run the sharded benchmark step
+    on this process's tiles (multihost.local_tile_slice) on its card, and
+    send back the survey statistics."""
+    import torch
+    import torch.distributed as dist
+    os.environ.update(NEMO_TPU_MULTIHOST="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank))
+    sys.path.insert(0, ROOT)
+    from nemo_tpu_torch.parallel import distribute, mesh, multihost
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    multihost.initialize_from_env("cuda")
+    try:
+        m = mesh.get_mesh(devices=[dev])
+        args = tile_step_batch(dev)
+        idx = [int(n) for n in multihost.local_tile_slice(
+            [str(i) for i in range(args[0].shape[0])], m)]
+        o = distribute.make_sharded_tile_step(
+            m, GRID_PIX, TILE_STEP_TRIM, topK=64)(
+                *place(mesh.tile_sharding(m), args, idx))
+        out.put((rank, idx, o["surveyRMSHist"].cpu().numpy(),
+                 int(o["surveyCandidateCount"]), dist.get_backend()))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_processes(card):
+    """17d, with two cards or more: two processes of one card each, joined
+    over NCCL, reduce the benchmark step's survey statistics over the
+    process group; each equals one process's over a two-card mesh."""
+    import socket
+    import torch
+    from nemo_tpu_torch.parallel import distribute, mesh
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_process, args=(r, port, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = sorted(q.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if any(p.exitcode != 0 for p in procs):
+        raise RuntimeError("17d: process exit codes %s"
+                           % [p.exitcode for p in procs])
+    m = mesh.get_mesh(devices=["cuda:0", "cuda:1"])
+    ref = distribute.make_sharded_tile_step(
+        m, GRID_PIX, TILE_STEP_TRIM, topK=64)(
+            *place(mesh.tile_sharding(m), tile_step_batch(m.devices[0])))
+    refHist = ref["surveyRMSHist"].cpu().numpy()
+    refCount = int(ref["surveyCandidateCount"])
+    for rank, idx, hist, count, backend in res:
+        if not np.array_equal(hist, refHist) or count != refCount:
+            raise RuntimeError("17d: rank %d's survey statistics differ"
+                               % rank)
+    phase(17, "17d two processes (%s), one card each, tiles %s and %s: "
+          "the survey histogram and candidate count (%d) equal one "
+          "process's over a two-card mesh, in %.1f s (%s)"
+          % (res[0][4], res[0][1], res[1][1], refCount,
+             time.perf_counter() - t0, card))
+
+
+def mesh_phase(noise, detect, card, surveyDict, truth, oneCat,
+               device="cuda"):
+    """Phase 17, the mesh: 17a the sharded tile step; 17b phase 7's survey
+    through batchFilterTilesMulti on the mesh (every card, or two shards
+    on cuda:0), cold and warm, against ``oneCat`` (phase 8's one-device
+    warm catalog) by phase 9's rule and bitwise; launches of both kernels
+    on each shard's device and no plain call; each shard's step seconds;
+    17c the photometry filters held on their shards' devices and read
+    onto the policy's.  Returns the warm run's launches (total, and by
+    device)."""
+    import torch
+    from nemo_tpu_torch import filters as filters_mod
+    from nemo_tpu_torch import startup
+    from nemo_tpu_torch.parallel import filtercache
+    t0 = time.perf_counter()
+    m = survey_mesh(device)
+    phase(17, "mesh=%s (%d card(s) on the machine)"
+          % ([str(d) for d in m.devices], torch.cuda.device_count()))
+    mesh_tile_step(noise, card, m)
+
+    nTiles = SURVEY_GRID[0] * SURVEY_GRID[1]
+    nLabels = len(surveyDict["mapFilters"])
+    runs = {}
+    for tag in ("cold", "warm"):
+        reset_counts(noise, detect)
+        cat, secs, _ = run_search(surveyDict, device, "mesh_" + tag,
+                                  mesh=m)
+        runs[tag] = (cat, secs, chunk_budget("mesh_" + tag),
+                     read_counts(noise, detect), device_counts(noise, detect))
+    cat, secs, bud, counts, byDevice = runs["warm"]
+    perShard = {str(d): nLabels * list(m.devices).count(d)
+                for d in dict.fromkeys(m.devices)}
+    # a CPU rehearsal runs the plain versions, one call a shard and label
+    plain = 0 if device == "cuda" else nLabels * m.size
+    if device != "cuda":
+        perShard = {}
+    if counts["rms_plain"] != plain or counts["labels_plain"] != plain \
+            or byDevice["rms_cells"] != perShard \
+            or byDevice["label_components"] != perShard:
+        raise RuntimeError("mesh run: counts %s, by device %s (want %s)"
+                           % (counts, byDevice, perShard))
+    if bud["shards"] != [[nTiles // m.size] * m.size]:
+        raise RuntimeError("mesh run: shards %s" % bud["shards"])
+    nCompared, maxSep, maxDy = compare_runs(truth, cat, oneCat)
+    diff = same_catalog(cat, oneCat)
+    phase(17, "17b the survey on the mesh, %d tiles x %d scales: cold "
+          "%.2f s, warm %.2f s (staging wait %.2f + upload %.2f, steps "
+          "%.2f, downloads %.2f, host catalog %.2f, other host %.2f); "
+          "steps by shard %s s over %s tiles; launches by device %s, plain "
+          "calls %d + %d (%s)"
+          % (nTiles, nLabels, runs["cold"][1], secs, bud["stageWait"],
+             bud["upload"], bud["step"], bud["download"], bud["consume"],
+             bud["hostOther"], [round(t, 4) for t in bud["shardStep"][0]],
+             bud["shards"][0], json.dumps(byDevice), counts["rms_plain"],
+             counts["labels_plain"], card))
+    phase(17, "17b catalog against the one-device run: %d clusters at "
+          "fixed_SNR >= 5 in either, found by both, max offset %.4f', max "
+          "|fixed_y_c ratio - 1| %.2e; %s (largest row difference %.3e)"
+          % (nCompared, maxSep, maxDy, "bitwise the same" if diff == 0.0
+             else "not bitwise the same", diff))
+
+    # 17c: the photometry filters stay on their shards' devices; a reader
+    # on the policy's device moves them there
+    parDict = startup.parseConfigDict(copy.deepcopy(surveyDict))
+    parDict["outputDir"] = os.path.join(WORK, "mesh_warm")
+    config = startup.NemoConfig(parDict, device=device)
+    f = next(x for x in parDict["mapFilters"] if x["label"] == PHOT)
+    entryDevices, moved = set(), 0
+    for tile in sorted(t["tileName"] for t in surveyDict["tileDefinitions"]):
+        loader = filters_mod.getFilterClass(f["class"])(
+            f["label"], config.unfilteredMapsDictList, f["params"],
+            tileName=tile, diagnosticsDir=config.diagnosticsDir,
+            geometryOnly=True, policy=config.policy)
+        ent = filtercache.DEVICE_CACHE.get(loader.filterFileName)
+        if ent is None:
+            raise RuntimeError("tile %s's photometry filter is not device-"
+                               "resident" % tile)
+        entryDevices.add(str(ent["filt"].device))
+        loader.loadFilter()
+        if loader.filt.device != m.devices[0] or not torch.equal(
+                loader.filt, ent["filt"].to(loader.filt.device)):
+            raise RuntimeError("tile %s's cached filter read onto %s"
+                               % (tile, loader.filt.device))
+        moved += ent["filt"].device != loader.filt.device
+    phase(17, "17c the photometry filters of %d tiles held on %s, read "
+          "onto %s (%d moved across cards), equal (%s)"
+          % (nTiles, sorted(entryDevices), m.devices[0], moved, card))
+    if device == "cuda" and torch.cuda.device_count() >= 2:
+        mesh_processes(card)
+    phase(17, "phase 17 in %.1f s" % (time.perf_counter() - t0))
+    return {"rms_cells": counts["rms_cells"], "labels": counts["labels"],
+            "by_device": byDevice}
+
+
+def mesh_only():
+    """Phases 1, 2, 7 and 17 alone, for a change on the mesh path: the
+    kernels' build, the survey, its one-device warm batched run (phase 8's
+    reference, on cuda:0 alone) and the mesh phase on every card (two
+    shards on cuda:0 with one card); prints the card, no ``ok`` line.
+    ``python3 -c 'import chip_smoke; chip_smoke.mesh_only()'``"""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, ROOT)
+    from nemo_tpu_torch import cuda_build
+    from nemo_tpu_torch.ops import detect, noise
+    from nemo_tpu_torch.parallel import mesh
+    tStart = time.perf_counter()
+    card = nvidia_smi()
+    phase(1, "card: %s | torch %s | CUDA %s | %d device(s)"
+          % (card, torch.__version__, torch.version.cuda,
+             torch.cuda.device_count()))
+    sources = ("rms_cells.cu", "label_components.cu")
+    cuda_build.build(sources)
+    noise.load_kernel()
+    detect.load_label_kernel()
+    phase(2, "build: %s in %.2f s" % (", ".join(sources),
+                                      time.perf_counter() - tStart))
+    shutil.rmtree(WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    surveyDict, truth = survey_inputs(os.path.join(WORK, "survey"))
+    phase(7, "survey inputs in %.1f s" % (time.perf_counter() - t0))
+    one = mesh.get_mesh(devices=["cuda:0"])
+    run_search(surveyDict, "cuda", "batched_cold", mesh=one)
+    oneCat, oneSecs, _ = run_search(surveyDict, "cuda", "batched_warm",
+                                    mesh=one)
+    phase(8, "one-device warm run on cuda:0: %.2f s, %d objects"
+          % (oneSecs, len(oneCat)))
+    launches = mesh_phase(noise, detect, card, surveyDict, truth, oneCat)
+    print("launches on the mesh %s; total %.1f s"
+          % (json.dumps(launches), time.perf_counter() - tStart))
+    print(card)
+
+
 def tools_only():
     """Phases 1, 2, 7, 10 and 16 alone on fresh inputs, for a change on
     the tools' paths: the survey, its DR5 epilogue run (phase 10, whose
@@ -3480,6 +3874,7 @@ def legendre_row(leg, direction, launches, extra):
                            % direction)
     return dict({
         "name": "legendre_" + direction, "route": "cuda",
+        "launches_mesh": 0,          # phase 17 runs no sims
         "source": "nemo_tpu_torch/csrc/legendre_contract.cu",
         "replaces": "nemo_tpu/ops/sht.py:70 (XLA lax.scan, not a TPU "
                     "kernel)",
@@ -3596,6 +3991,16 @@ def main():
         noise, detect, card, surveyDict, surveyTruth,
         os.path.join(WORK, "rs_warm", "rs_warm_optimalCatalog.fits"),
         cfgPath, os.path.join(dr5Out, "selFn"))
+    meshLaunches = mesh_phase(noise, detect, card, surveyDict, surveyTruth,
+                              runs["warm"][0])
+    # the deferred filter-cache FITS of every run, written now rather than
+    # by the exit hook
+    from nemo_tpu_torch.parallel import filtercache
+    t0 = time.perf_counter()
+    nDeferred = filtercache.deferred_count()
+    filtercache.flush(materialize_deferred=True)
+    print("filter cache: %d deferred FITS written in %.2f s"
+          % (nDeferred, time.perf_counter() - t0))
 
     errs, flips, ms, bms, by = rms[("step", "float32")]
     ms1 = rms[("nT1", "float32")][2]
@@ -3620,6 +4025,8 @@ def main():
         "launches_injection_reruns": injCounts[1]["rms_cells"],
         "launches_realspace_run": rsCounts["rms_cells"],
         "launches_nemoSpec_matchedFilter": toolLaunches["rms_cells"],
+        "launches_mesh": meshLaunches["rms_cells"],
+        "launches_mesh_by_device": meshLaunches["by_device"]["rms_cells"],
         "ms_nT1": ms1["staged"],
         "ms_nT1_streaming": ms1["streaming"], "plain_ms_nT1": ms1["plain"],
         "ms_realspace_layout": msRs["staged"],
@@ -3635,6 +4042,9 @@ def main():
         "bound_ms": labelBound, "bound_by": labelBy, "library_ms": None,
         "share_of_bound": labelBound / labelMs["kernel"],
         "launches_nemo_I": injCounts[0]["labels"],
+        "launches_mesh": meshLaunches["labels"],
+        "launches_mesh_by_device":
+            meshLaunches["by_device"]["label_components"],
         "shape": "16 x 900 x 1536 S/N mask, 128 passes"}, {
         "name": "boltzmann_rk4", "route": "cuda",
         "source": "nemo_tpu_torch/csrc/boltzmann_rk4.cu",
@@ -3642,6 +4052,8 @@ def main():
                     "TPU kernel)",
         "launches": dr5Counts["boltzmann"],
         "launches_nemoMock": toolLaunches["boltzmann"],
+        # phase 17 filters only; the epilogue runs on the policy's device
+        "launches_mesh": 0,
         "max_abs_err": boltz["max_abs_err_24576_plain"],
         "ms": boltz["ms24576"], "plain_ms": boltz["plain_ms24576"],
         "bound_ms": boltz["bound_ms24576"],
@@ -3651,6 +4063,7 @@ def main():
                  "a lane; ms is the call (per-step table built, uploaded, "
                  "one launch)",
         "ms_kernel_only": boltz["kernel_ms24576"],
+        "plain_device": "cpu (float64; at nGrid 4096 on the card)",
         "ms_kernel_nvcc_division": boltz["ieee_div_ms24576"],
         "ms_kernel_one_k": boltz["kernel_ms24576_one_k"],
         "chain_ns_per_step": boltz["chain_ns_per_step"],

@@ -9,7 +9,10 @@ then the epilogue as the JAX CLI does: the Q fit (``fitQ``), the RMS
 tables, the fRel weights and the fused selection-function products, the
 stitched and quick-look maps, with ``-I`` (or ``sourceInjectionTest``) the
 source-injection test and its position recovery analysis, and with ``-S``
-(or ``calcSelFn``) the completeness and mass-limit maps.
+(or ``calcSelFn``) the completeness and mass-limit maps.  The batched
+engine splits each chunk over every card (``parallel/mesh.py``);
+``NEMO_TPU_MULTIHOST=1`` joins a torch.distributed process group first
+(``parallel/multihost.py``).
 
     python -m nemo_tpu_torch.cli.nemo_main config.yml --device cuda
 """
@@ -72,6 +75,12 @@ def makeParser():
 
 def main(argv=None):
     args = makeParser().parse_args(argv)
+    # Multi-process runtime: no-op unless NEMO_TPU_MULTIHOST=1
+    # (parallel/multihost.py documents the launch contract); must run
+    # before first device use.
+    from nemo_tpu_torch.parallel import multihost
+    multihost.initialize_from_env(args.device)
+
     config = startup.NemoConfig(args.configFileName,
                                 calcSelFn=args.calcSelFn,
                                 sourceInjectionTest=args.sourceInjectionTest,

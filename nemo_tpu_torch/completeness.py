@@ -668,10 +668,13 @@ def loadFRelWeights(fRelWeightsFileName):
 
 def getFRelWeights(config):
     """Collect fRel weights from the cached filter headers into a table
-    (``signals.py:815-844``).  Only the FITS headers are read: the filter
-    data itself is not needed for the RW weight columns."""
+    (``signals.py:815-844``): from the batched engine's device-resident
+    cache entry where it holds the filter, else from the FITS header
+    alone (the filter data itself is not needed for the RW weight
+    columns)."""
     if config.parDict.get("photFilter") is None:
         return {}
+    from .parallel import filtercache
     fRelWeightsFileName = os.path.join(config.selFnDir, "fRelWeights.fits")
     if not os.path.exists(fRelWeightsFileName):
         rows = {"tileName": []}
@@ -680,6 +683,17 @@ def getFRelWeights(config):
                 config.diagnosticsDir, tileName,
                 "filter_%s#%s.fits" % (config.parDict["photFilter"],
                                        tileName))
+            ent = filtercache.DEVICE_CACHE.get(filterFileName)
+            if ent is not None:
+                # the weights live in the entry: no file needed
+                rows["tileName"].append(tileName)
+                for freq, w in ent["fRelWeights"].items():
+                    rows.setdefault(str(freq), [])
+                    rows[str(freq)].append(w)
+                continue
+            # settle an in-flight write of this file (not a flush, which
+            # would write every deferred filter for a header read)
+            filtercache.ensure_written(filterFileName)
             if not os.path.exists(filterFileName):
                 continue
             header = nfits.read_image_header(filterFileName)

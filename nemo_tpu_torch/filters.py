@@ -348,7 +348,20 @@ class MapFilter:
         nfits.write_image(self.filterFileName, self._filtHost(), header)
 
     def loadFilter(self):
-        """Read the filter state from the ``filter_*.fits`` cache."""
+        """Read the filter state: from the batched engine's device-resident
+        cache when it holds this filter (:mod:`.parallel.filtercache`; the
+        tensor moves to the policy's device), else from the
+        ``filter_*.fits`` cache once any pending write of it has
+        landed."""
+        from .parallel import filtercache
+        ent = filtercache.DEVICE_CACHE.get(self.filterFileName)
+        if ent is not None:
+            self.filt = ent["filt"].to(device=self.policy.device,
+                                       dtype=self.policy.dtype)
+            self.signalNorm = float(ent["signalNorm"])
+            self.fRelWeights = dict(ent["fRelWeights"])
+            return
+        filtercache.ensure_written(self.filterFileName)
         data, header = nfits.read_image(self.filterFileName)
         fRelWeights = {}
         for i in range(1, 10):
@@ -553,9 +566,15 @@ class MatchedFilter(MapFilter):
                                         padShape=self.padShape)
 
         # file-based idempotency, as the reference: an existing cached
-        # filter is always reused
-        if self.filterFileName is not None and \
-                os.path.exists(self.filterFileName):
+        # filter is always reused (the device-resident cache counts: its
+        # FITS write may still be deferred; loadFilter prefers it)
+        from .parallel import filtercache
+        haveCache = self.filterFileName is not None
+        if haveCache and \
+                filtercache.DEVICE_CACHE.get(self.filterFileName) is None:
+            filtercache.ensure_written(self.filterFileName)
+            haveCache = os.path.exists(self.filterFileName)
+        if haveCache:
             self.loadFilter()
             self.params["saveRMSMap"] = False
             self.params["saveFilter"] = False

@@ -360,6 +360,11 @@ def fitQ(config):
 
         QTabDict[tileName] = _assembleQTab(peaks, models, cosmoModel,
                                            zDepQ, tileName, y0)
+        # fitQ is the filter's last reader in the process: retire it from
+        # the device cache (its FITS write queued)
+        if filterObj.filterFileName is not None:
+            from ..parallel import filtercache
+            filtercache.release(filterObj.filterFileName)
         tTile = time.time() - tTile0
         extra = "" if tPaint is None \
             else ", incl. %.1f s painting the model stack" % tPaint
@@ -459,8 +464,12 @@ def _fitQTileBatched(config, ref, models, buildModelTables, cosmoModel,
         print("... qfitReadDepth: accepted and ignored (each tile chunk is "
               "read as it completes)", flush=True)
 
+    from ..parallel import filtercache
+
+    # seconds by phase; cacheLoads counts the filters read from the
+    # device-resident cache
     tBudget = {"construct": 0.0, "loadFilter": 0.0, "paint": 0.0,
-               "dispatch": 0.0, "download": 0.0}
+               "dispatch": 0.0, "download": 0.0, "cacheLoads": 0}
     t0 = time.time()
     groups = {}          # (padShape, pix) -> list of (tileName, filterObj)
     for tileName in config.tileNames:
@@ -520,12 +529,14 @@ def _fitQTileBatched(config, ref, models, buildModelTables, cosmoModel,
             chunkTiles = tiles[t0idx:t0idx + tileChunk]
             t0 = time.time()
             filts, norms = [], []
+            hits0 = filtercache.DEVICE_CACHE.hits
             for tileName, filterObj in chunkTiles:
                 filterObj.loadFilter()
                 filts.append(filterObj.filt)
                 norms.append(float(filterObj.signalNorm))
             filts = torch.stack(filts)
             tBudget["loadFilter"] += time.time() - t0
+            tBudget["cacheLoads"] += filtercache.DEVICE_CACHE.hits - hits0
 
             t0 = time.time()
             sps = torch.cat([_applyPeaks(filts, fdev, tuple(padShape))
@@ -539,16 +550,21 @@ def _fitQTileBatched(config, ref, models, buildModelTables, cosmoModel,
             for _, nChunk in fModelChunks:
                 cols.append(slice(c0, c0 + nChunk))
                 c0 += modelChunk
-            for ti, (tileName, _) in enumerate(chunkTiles):
+            for ti, (tileName, filterObj) in enumerate(chunkTiles):
                 peaks = [float(v) * norms[ti]
                          for sl in cols for v in vals[ti, sl]]
                 QTabDict[tileName] = _assembleQTab(
                     peaks, models, cosmoModel, zDepQ, tileName, y0)
+                # fitQ is the filter's last reader in the process: retire
+                # it from the device cache (its FITS write queued)
+                if filterObj.filterFileName is not None:
+                    filtercache.release(filterObj.filterFileName)
             _qfitBudgetRecord(config, chunkTiles, tChunkWall, tBudget,
                               cpuChunkIn)
             del filts, sps
     print("... fitQ budgets: " + ", ".join(
-        "%s %.1fs" % kv for kv in sorted(tBudget.items())), flush=True)
+        ("%s %d" if isinstance(v, int) else "%s %.1fs") % (k, v)
+        for k, v in sorted(tBudget.items())), flush=True)
 
     _writeQTabs(config, QTabDict, zDepQ)
     return QTabDict

@@ -33,6 +33,7 @@ of the JAX package are thin wrappers over it.
 """
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -70,6 +71,8 @@ def label_components_batch(mask, n_iter=128):
 
 
 label_components_batch.launches = 0
+label_components_batch.device_launches = {}  # launches by device
+_COUNT_LOCK = threading.Lock()
 
 
 def _declare_labels(lib):
@@ -110,7 +113,11 @@ def _label_components_cuda(mask, n_iter):
     if err != 0:
         raise RuntimeError("label_components kernel launch failed: CUDA "
                            "error %d" % err)
-    label_components_batch.launches += 1
+    with _COUNT_LOCK:     # shards on several cards launch from threads
+        label_components_batch.launches += 1
+        key = str(mask.device)
+        label_components_batch.device_launches[key] = \
+            label_components_batch.device_launches.get(key, 0) + 1
     return bufs[(launches - 1) % 2]
 
 

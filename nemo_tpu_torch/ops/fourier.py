@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from . import _exact
+
 
 def rfft2(m):
     """Real-input 2-d FFT over the last two axes (half grid)."""
@@ -95,7 +97,7 @@ def rmodlmap_graph(shape, pix_scales_rad, device=None,
     ly, lx = rlaxes(shape, pix_scales_rad)
     ly = torch.as_tensor(ly, dtype=dtype, device=device)
     lx = torch.as_tensor(lx, dtype=dtype, device=device)
-    return torch.sqrt(ly[:, None] ** 2 + lx[None, :] ** 2)
+    return _exact.sqrt(ly[:, None] ** 2 + lx[None, :] ** 2)
 
 
 def radial_distance_map(shape, pix_scales_rad, center=None):

@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from . import fourier
+from . import _exact, fourier
 from .paint import interp
 
 # Approximate lensed CMB TT spectrum: log-interpolated anchors of
@@ -118,7 +118,7 @@ def gaussian_field(shape, pix_scales_rad, ell, Cl, dtype=torch.float64,
                   torch.as_tensor(Cl, dtype=lmap.dtype, device=device),
                   right=0.0)
     omega_pix = dy * dx
-    amp = torch.sqrt(torch.clamp(Cl2d, min=0.0) / omega_pix)
+    amp = _exact.sqrt(torch.clamp(Cl2d, min=0.0) / omega_pix)
     white = _white(shape, dtype, device, generator, white, "gaussian_field")
     F = torch.fft.rfft2(white)
     return torch.fft.irfft2(F * amp, s=tuple(shape))
@@ -150,10 +150,10 @@ def gaussian_field_decaware(shape, dy, dx_rows, ell, Cl, n_bands=9,
     bands = []
     for b in range(n_bands):
         dx_b = dxs[b]
-        lmap = torch.sqrt((lyf / dy)[:, None] ** 2
+        lmap = _exact.sqrt((lyf / dy)[:, None] ** 2
                           + (lxf / dx_b)[None, :] ** 2)
         Cl2d = interp(lmap, ellA, ClA, right=0.0)
-        amp = torch.sqrt(torch.clamp(Cl2d, min=0.0) / (dy * dx_b))
+        amp = _exact.sqrt(torch.clamp(Cl2d, min=0.0) / (dy * dx_b))
         bands.append(torch.fft.irfft2(F * amp, s=tuple(shape)))
     bands = torch.stack(bands)                          # (B, ny, nx)
     t = (dx_rows - dxLo) / torch.clamp(dxHi - dxLo, min=1e-300) \
@@ -230,7 +230,7 @@ def sim_noise_map(shape, noiseLevel, pix_scales_rad=None, lKnee=None,
     lmap = fourier.rmodlmap_graph(shape, pix_scales_rad, device=device)
     Nl = torch.where(lmap > 0, (lKnee / torch.clamp(lmap, min=1e-9))
                      ** -alpha + 1.0, torch.zeros_like(lmap))
-    shape_l = torch.where(lmap <= lmax_atm, torch.sqrt(Nl),
+    shape_l = torch.where(lmap <= lmax_atm, _exact.sqrt(Nl),
                           torch.ones_like(lmap))
     shaped = fourier.irfft2(fourier.rfft2(white) * shape_l, s=shape)
     if noiseLevel.ndim == 0:

@@ -9,6 +9,7 @@ its band-summed and tile-batched forms).
 """
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -231,13 +232,15 @@ def convolve2d_reflect_sum_batch(m, kernels):
     batch of transforms.  Calls are counted in
     ``convolve2d_reflect_sum_batch.calls``."""
     _check_odd(kernels, "convolve2d_reflect_sum")
-    convolve2d_reflect_sum_batch.calls += 1
+    with _COUNT_LOCK:     # shards on several cards call from threads
+        convolve2d_reflect_sum_batch.calls += 1
     ky, kx = kernels.shape[-2:]
     return _conv_sum(_reflect_pad(m, ky, kx),
                      torch.as_tensor(kernels, device=m.device))
 
 
 convolve2d_reflect_sum_batch.calls = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def median_filter_host(m, size):

@@ -16,11 +16,13 @@ percentile estimator stays in torch ops.
 """
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from .. import cuda_build
+from . import _exact
 
 
 def cell_edges(n, gridSize):
@@ -37,7 +39,7 @@ def _masked_mean_std(vals, mask):
     maskf = mask.to(vals.dtype)
     mean = (vals * maskf).sum(dim=1) / safe_n
     var = (maskf * (vals - mean[:, None]) ** 2).sum(dim=1) / safe_n
-    return mean, torch.sqrt(var), n
+    return mean, _exact.sqrt(var), n
 
 
 def _cell_stats(windows, valid, n_iter=10, estimator="default"):
@@ -136,6 +138,8 @@ def rms_cells(padded, starts_y, starts_x, lens_y, lens_x, window):
 rms_cells.launches = 0
 rms_cells.largest_nT = 0     # largest tile batch a launch has seen
 rms_cells.variant_launches = {"staged": 0, "streaming": 0}
+rms_cells.device_launches = {}   # launches by device ("cuda:0", ...)
+_COUNT_LOCK = threading.Lock()
 
 # Shared memory a staged window may take: the 232,448 B an H100 block may
 # use, less the static reduction scratch (csrc/rms_cells.cu,
@@ -198,9 +202,13 @@ def _rms_cells_cuda(padded, starts_y, starts_x, lens_y, lens_x, window,
     if err != 0:
         raise RuntimeError("rms_cells %s kernel launch failed: CUDA error "
                            "%d" % (variant, err))
-    rms_cells.launches += 1
-    rms_cells.variant_launches[variant] += 1
-    rms_cells.largest_nT = max(rms_cells.largest_nT, nT)
+    with _COUNT_LOCK:     # shards on several cards launch from threads
+        rms_cells.launches += 1
+        rms_cells.variant_launches[variant] += 1
+        rms_cells.largest_nT = max(rms_cells.largest_nT, nT)
+        key = str(padded.device)
+        rms_cells.device_launches[key] = \
+            rms_cells.device_launches.get(key, 0) + 1
     return out
 
 

@@ -12,6 +12,8 @@ every call (see :func:`_accumulate_in_order`).
 import numpy as np
 import torch
 
+from . import _exact
+
 
 def interp(x, xp, fp, left=None, right=None):
     """``jnp.interp`` on tensors, formula for formula: torch has no interp.
@@ -99,7 +101,7 @@ def paint_templates_centered_batch(shape, pix_scales_rad, tables,
     c = t(np.asarray(center, dtype=npDtype))
     yy = (torch.arange(ny, dtype=dtype, device=device) - c[0]) * scales[0]
     xx = (torch.arange(nx, dtype=dtype, device=device) - c[1]) * scales[1]
-    r = torch.sqrt(yy[:, None] ** 2 + xx[None, :] ** 2)
+    r = _exact.sqrt(yy[:, None] ** 2 + xx[None, :] ** 2)
     out = torch.empty((len(tables), ny, nx), dtype=dtype, device=device)
     for i, (rp, vp) in enumerate(padded):
         vp = t(vp)
@@ -135,7 +137,7 @@ def paint_template_centered(shape, pix_scales_rad, r_prof, v_prof,
     scales, c = t(scales), t(c)
     yy = (torch.arange(ny, dtype=dtype, device=device) - c[0]) * scales[0]
     xx = (torch.arange(nx, dtype=dtype, device=device) - c[1]) * scales[1]
-    r = torch.sqrt(yy[:, None] ** 2 + xx[None, :] ** 2)
+    r = _exact.sqrt(yy[:, None] ** 2 + xx[None, :] ** 2)
     vp = t(vp)
     return interp(r, t(rp), vp, left=vp[0], right=0.0)
 
@@ -270,7 +272,7 @@ def paint_objects(shape, pix_scales_rad, ys, xs, amps, r_prof, v_prof,
         rows = sy[:, None] + iyInt[None, :]
         dxw = dxPad[rows]
         xx = ixOff[None, :] - ox[:, None]
-        r = torch.sqrt(yy[:, :, None] ** 2
+        r = _exact.sqrt(yy[:, :, None] ** 2
                        + (dxw[:, :, None] * xx[:, None, :]) ** 2)
         vals = amp[:, None, None] * interp(r, rp, vp, left=vp[0], right=0.0)
         index = rows[:, :, None] * Wc + (sx[:, None] + ixInt[None, :])[

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from . import grf
+from . import _exact, grf
 
 __all__ = ["alm2map_car", "map2alm_car", "rand_alm", "sim_cmb_map_curved",
            "sim_noise_map_curved", "legendre_rings", "ring_weights",
@@ -136,9 +136,9 @@ def _legendre_contract_plain(thetas, alm_re, alm_im, lmax, mmax,
         lf = torch.tensor(float(l), dtype=dtype, device=dev)
         active = mv < lf
         den = torch.where(active, lf * lf - mv * mv, one)
-        a = torch.sqrt((4.0 * lf * lf - 1.0) / den)
+        a = _exact.sqrt((4.0 * lf * lf - 1.0) / den)
         lm1 = lf - 1.0
-        b = torch.sqrt(torch.where(active, ((lm1 * lm1 - mv * mv)
+        b = _exact.sqrt(torch.where(active, ((lm1 * lm1 - mv * mv)
                                             / (4.0 * lm1 * lm1 - 1.0)), zero))
         Pnew = torch.where(active, a * (ct * P - b * Pp), zero)
         seed = mv == lf

@@ -9,14 +9,29 @@ layout), forms the S/N map, trims edges and, in detection mode, segments
 the S/N map and reads per-object statistics on the device
 (:mod:`..ops.detect`).  The real-space step does the same tail after a
 band-summed convolution with each tile's own kernels, at the tiles' true
-shape.  The JAX package shards the batch over a device
-mesh with ``shard_map``; here the tile axis is a plain leading axis, and
-the survey ``psum``/``pmax`` reductions of the benchmark step are plain
-reductions over it.
+shape.
 
-The step functions take tensors that all live on one device (the policy's)
-and raise if one does not: nothing falls back to the CPU.
+The one-device steps (``make_tile_step``, ``make_matched_filter_step``,
+``make_realspace_step``) take tensors that all live on one device and
+raise if one does not: nothing falls back to the CPU.  The JAX package
+shards the tile axis over a device mesh with ``shard_map``; the
+``make_sharded_*`` steps here take a :class:`.mesh.Mesh` and a batch as
+its shards (:func:`.mesh.tile_sharding`), run the one-device step on
+each shard on that shard's device, and launch every shard before they
+wait on any (shards on distinct devices run from one thread per device,
+so a host sync inside one shard's step does not hold the others back).
+The benchmark step's survey statistics are real collectives over the
+shards: the maximum RMS over every shard sets the shared histogram
+edges, each shard takes its own histogram, and the histograms and
+candidate counts are summed; with ``torch.distributed`` initialised over
+several processes they are also all-reduced over the process group, as
+a JAX mesh that spans processes reduces over all of it.
 """
+
+import contextlib
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -24,6 +39,7 @@ from ..ops import detect as detect_ops
 from ..ops import fourier, imageops
 from ..ops import noise as noise_ops
 from ..ops import solve as solve_ops
+from .mesh import get_mesh, replicated, tile_sharding
 
 
 def _check_one_device(*tensors):
@@ -97,14 +113,53 @@ def _top_peaks(SNMap, threshold, topK):
     return vals, torch.div(flatIdx, nx, rounding_mode="floor"), flatIdx % nx
 
 
-def _histogram(values, edges):
-    """``jnp.histogram`` counts of ``values`` over ``edges`` (right edge of
-    the last bin inclusive), as bucketize + integer bincount."""
+def _histogram(values, valid, edges):
+    """``jnp.histogram`` counts of the ``valid`` entries of ``values`` over
+    ``edges`` (right edge of the last bin inclusive), as bucketize and an
+    integer scatter-add (no host sync)."""
     nb = edges.shape[0] - 1
     idx = torch.bucketize(values, edges, right=True) - 1
     idx = torch.where(values == edges[-1], torch.full_like(idx, nb - 1), idx)
-    inside = (idx >= 0) & (idx < nb)
-    return torch.bincount(idx[inside], minlength=nb).to(values.dtype)
+    inside = (valid & (idx >= 0) & (idx < nb)).reshape(-1)
+    counts = torch.zeros(nb, dtype=torch.int64, device=values.device)
+    counts.scatter_add_(0, torch.where(inside, idx.reshape(-1), 0),
+                        inside.to(torch.int64))
+    return counts.to(values.dtype)
+
+
+def _process_all_reduce(t, op):
+    """All-reduce ``t`` in place over the process group when
+    ``torch.distributed`` runs more than one process; else nothing."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.all_reduce(t, op=op)
+    return t
+
+
+def _survey_stats(RMSMaps, peakVals, threshold, across_processes):
+    """The survey-wide candidate count and RMS histogram of a batch given
+    as shards: the maximum RMS over every shard (``pmax``) sets 33 shared
+    edges, each shard takes its own histogram on its device, and the
+    counts and histograms are summed (``psum``) on the first shard's
+    device; ``across_processes`` also all-reduces them over the process
+    group (MAX, then SUM)."""
+    import torch.distributed as dist
+    dev0 = RMSMaps[0].device
+    globalMax = torch.stack([torch.max(r).to(dev0) for r in RMSMaps]).max()
+    if across_processes:
+        globalMax = _process_all_reduce(globalMax, dist.ReduceOp.MAX)
+    edges = torch.linspace(0.0, 1.0, 33, dtype=RMSMaps[0].dtype,
+                           device=dev0) * (globalMax * 1.0001 + 1e-30)
+    hist = torch.stack([
+        _histogram(r, r > 0, edges.to(r.device)).to(dev0)
+        for r in RMSMaps]).sum(dim=0)
+    nCand = torch.stack([torch.sum(v > threshold).to(dev0)
+                         for v in peakVals]).sum()
+    if across_processes:
+        hist = _process_all_reduce(hist, dist.ReduceOp.SUM)
+        nCand = _process_all_reduce(nCand, dist.ReduceOp.SUM)
+    return nCand, hist
 
 
 def make_tile_step(gridSize, trimPix, topK=256, threshold=4.0,
@@ -131,14 +186,9 @@ def make_tile_step(gridSize, trimPix, topK=256, threshold=4.0,
         out = {"filtered": filtered, "SNMap": SNMap, "RMSMap": RMSMap,
                "peakVals": vals, "peakYs": ys, "peakXs": xs}
         if with_survey_stats:
-            # survey-wide reductions over the whole batch (the JAX
-            # package's psum / pmax over its device mesh)
-            out["surveyCandidateCount"] = torch.sum(vals > threshold)
-            valid = RMSMap > 0
-            edges = torch.linspace(0.0, 1.0, 33, dtype=RMSMap.dtype,
-                                   device=RMSMap.device) \
-                * (torch.max(RMSMap) * 1.0001 + 1e-30)
-            out["surveyRMSHist"] = _histogram(RMSMap[valid], edges)
+            # survey-wide reductions over the whole batch, one shard
+            out["surveyCandidateCount"], out["surveyRMSHist"] = \
+                _survey_stats([RMSMap], [vals], threshold, False)
         return out
 
     return step
@@ -301,7 +351,8 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
              fgPower, peakYX, meta):
         _check_one_device(data, noise, template, calib, w, apodM, psMask,
                           surveyMask, fgPower, peakYX)
-        make_matched_filter_step.calls["build"] += 1
+        with _COUNT_LOCK:
+            make_matched_filter_step.calls["build"] += 1
         dt = data.dtype
         filtered, norms, filt, crops = one_batch(
             data, noise, template, calib, w, apodM, fgPower, peakYX)
@@ -313,7 +364,8 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
 
     def step_given(data, filt, apodM, psMask, surveyMask, meta):
         _check_one_device(data, filt, apodM, psMask, surveyMask)
-        make_matched_filter_step.calls["given"] += 1
+        with _COUNT_LOCK:
+            make_matched_filter_step.calls["given"] += 1
         dt = data.dtype
         ny, nx = data.shape[-2:]
         fMaps = fourier.rfft2(data * apodM[:, None])
@@ -326,6 +378,7 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
 
 
 make_matched_filter_step.calls = {"build": 0, "given": 0}
+_COUNT_LOCK = threading.Lock()    # shards on several cards run in threads
 
 
 def make_realspace_step(gridSize, trimPix, undo_pixel_window=False):
@@ -357,7 +410,8 @@ def make_realspace_step(gridSize, trimPix, undo_pixel_window=False):
 
     def step(data, kern, signalNorm, apodM, psMask, surveyMask, meta):
         _check_one_device(data, kern, signalNorm, apodM, psMask, surveyMask)
-        make_realspace_step.calls += 1
+        with _COUNT_LOCK:
+            make_realspace_step.calls += 1
         dt = data.dtype
         psMask = psMask.to(dt)
         filtered = imageops.convolve2d_reflect_sum_batch(data, kern)
@@ -379,3 +433,196 @@ def make_realspace_step(gridSize, trimPix, undo_pixel_window=False):
 
 
 make_realspace_step.calls = 0
+
+
+# -- the sharded steps ---------------------------------------------------------
+
+def _check_shards(mesh, shards):
+    """The shards of a batch lie on the mesh's devices, no more of them
+    than it has positions."""
+    if len(shards) > mesh.size or not shards:
+        raise ValueError("%d shards on a mesh of %d positions"
+                         % (len(shards), mesh.size))
+    for t, dev in zip(shards, mesh.devices):
+        if t.device != dev:
+            raise ValueError("a shard on %s at a mesh position of %s: "
+                             "place the batch with tile_sharding(mesh)"
+                             % (t.device, dev))
+
+
+class StepTimer:
+    """A shard step's time on its device: CUDA events around its launches
+    on the device's current stream (read once the device has synced), or
+    the call's wall time on the CPU, whose steps run synchronously."""
+
+    def __init__(self, device):
+        self._events = None
+        self._wall = time.perf_counter()
+        if device.type == "cuda":
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+
+    def stop(self):
+        if self._events is not None:
+            self._events[1].record()
+        else:
+            self._wall = time.perf_counter() - self._wall
+
+    def seconds(self):
+        if self._events is None:
+            return self._wall
+        self._events[1].synchronize()
+        return self._events[0].elapsed_time(self._events[1]) / 1e3
+
+
+def _run_shards(fn, shardArgs):
+    """``fn(*args)`` for each shard's argument tuple, results in mesh
+    order, each with its :class:`StepTimer` under "stepTimer".  Shards on one device run in order from one thread (under
+    ``torch.cuda.device`` of theirs), so each is launched before any waits;
+    with several devices each device's shards run from a thread of their
+    own, and a failure on any device raises here."""
+
+    def runDevice(items):
+        dev = items[0][1][0].device
+        done = []
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            for k, args in items:
+                timer = StepTimer(dev)
+                out = fn(*args)
+                timer.stop()
+                done.append((k, dict(out, stepTimer=timer)))
+        return done
+
+    byDevice = {}
+    for k, args in enumerate(shardArgs):
+        byDevice.setdefault(args[0].device, []).append((k, args))
+    groups = list(byDevice.values())
+    if len(groups) == 1:
+        done = runDevice(groups[0])
+    else:
+        with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+            futures = [pool.submit(runDevice, g) for g in groups]
+            done = [r for f in futures for r in f.result()]
+    return [out for _, out in sorted(done, key=lambda kv: kv[0])]
+
+
+def _by_shard(outs):
+    """A list of per-shard output dicts -> one dict of per-shard lists
+    (nested dicts, as detection's ``det``, likewise)."""
+    merged = {}
+    for k, v in outs[0].items():
+        merged[k] = _by_shard([o[k] for o in outs]) if isinstance(v, dict) \
+            else [o[k] for o in outs]
+    return merged
+
+
+def _shard_meta(meta, shards):
+    """Cut a whole-batch :func:`..ops.noise.cell_meta_batch` dict into the
+    shards' consecutive tile ranges."""
+    out, start = [], 0
+    for t in shards:
+        stop = start + t.shape[0]
+        out.append({k: v[start:stop] for k, v in meta.items()})
+        start = stop
+    return out
+
+
+def _on_shards(mesh, t, shards):
+    """A shared tensor on each shard's device (one copy a device)."""
+    copies = replicated(mesh).put(t)
+    return [copies[s.device] for s in shards]
+
+
+def make_sharded_tile_step(mesh, gridSize, trimPix, topK=256, threshold=4.0,
+                           with_survey_stats=True):
+    """The benchmark step over a mesh (the JAX package's
+    ``make_sharded_tile_step``): a function of (data, noise, template, w,
+    apodM, psMask, surveyMask) where data, noise, template and the masks
+    are shards (:func:`.mesh.tile_sharding`) and w, apodM are shared
+    tensors.  Each output is a list of per-shard tensors, but for
+    "surveyCandidateCount" and "surveyRMSHist", the collectives' results
+    on the first shard's device."""
+    step = make_tile_step(gridSize, trimPix, topK=topK, threshold=threshold,
+                          with_survey_stats=False)
+
+    def sharded(data, noise, template, w, apodM, psMask, surveyMask):
+        _check_shards(mesh, data)
+        outs = _run_shards(step, list(zip(
+            data, noise, template, _on_shards(mesh, w, data),
+            _on_shards(mesh, apodM, data), psMask, surveyMask)))
+        out = _by_shard(outs)
+        if with_survey_stats:
+            out["surveyCandidateCount"], out["surveyRMSHist"] = \
+                _survey_stats(out["RMSMap"], out["peakVals"], threshold,
+                              True)
+        return out
+
+    return sharded
+
+
+def run_tile_batch(dataBatch, noiseBatch, templateBatch, w, apodM, psMask,
+                   surveyMask, gridSize, trimPix, mesh=None, topK=256,
+                   threshold=4.0):
+    """Host API: place a tile batch (host arrays or tensors) on the mesh
+    (default: every card) and run the sharded benchmark step."""
+    mesh = mesh or get_mesh()
+    step = make_sharded_tile_step(mesh, gridSize, trimPix, topK=topK,
+                                  threshold=threshold)
+    sh = tile_sharding(mesh)
+    return step(sh.put(dataBatch), sh.put(noiseBatch), sh.put(templateBatch),
+                torch.as_tensor(w), torch.as_tensor(apodM), sh.put(psMask),
+                sh.put(surveyMask))
+
+
+def make_sharded_matched_filter_step(mesh, gridSize, trimPix,
+                                     undo_pixel_window=False,
+                                     lean_outputs=False, detect_params=None,
+                                     return_filter=False,
+                                     given_filter=False):
+    """:func:`make_matched_filter_step` over a mesh (the JAX package's
+    ``make_sharded_matched_filter_step``): the same arguments, with every
+    tile-axis tensor given as shards (:func:`.mesh.tile_sharding`), ``w``
+    a shared tensor and ``meta`` the whole batch's host dict; returns the
+    same keys, each a list of per-shard tensors (``det`` a dict of such
+    lists)."""
+    step = make_matched_filter_step(
+        gridSize, trimPix, undo_pixel_window=undo_pixel_window,
+        lean_outputs=lean_outputs, detect_params=detect_params,
+        return_filter=return_filter, given_filter=given_filter)
+
+    def sharded(data, noise, template, calib, w, apodM, psMask, surveyMask,
+                fgPower, peakYX, meta):
+        # the same list for data and noise keeps the dataMap method's
+        # shared transform (the one-device step tests identity)
+        _check_shards(mesh, data)
+        return _by_shard(_run_shards(step, list(zip(
+            data, noise, template, calib, _on_shards(mesh, w, data), apodM,
+            psMask, surveyMask, fgPower, peakYX, _shard_meta(meta, data)))))
+
+    def sharded_given(data, filt, apodM, psMask, surveyMask, meta):
+        _check_shards(mesh, data)
+        return _by_shard(_run_shards(step, list(zip(
+            data, filt, apodM, psMask, surveyMask,
+            _shard_meta(meta, data)))))
+
+    return sharded_given if given_filter else sharded
+
+
+def make_sharded_realspace_step(mesh, gridSize, trimPix,
+                                undo_pixel_window=False):
+    """:func:`make_realspace_step` over a mesh (the JAX package's
+    ``make_sharded_realspace_step``): every tensor argument given as
+    shards, ``meta`` the whole batch's host dict; returns the same keys,
+    each a list of per-shard tensors."""
+    step = make_realspace_step(gridSize, trimPix,
+                               undo_pixel_window=undo_pixel_window)
+
+    def sharded(data, kern, signalNorm, apodM, psMask, surveyMask, meta):
+        _check_shards(mesh, data)
+        return _by_shard(_run_shards(step, list(zip(
+            data, kern, signalNorm, apodM, psMask, surveyMask,
+            _shard_meta(meta, data)))))
+
+    return sharded

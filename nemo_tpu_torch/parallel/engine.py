@@ -1,16 +1,18 @@
 """Device-batched production filtering: many tiles, one call per chunk.
 
-Port of ``nemo_tpu/parallel/engine.py`` for one GPU.  The per-tile host
-engine (:mod:`..filters`) processes one tile at a time; this engine stages
-the preprocessed tiles of a survey in chunks of ``deviceBatchSize`` tiles
-of one padded-shape bucket, uploads each chunk's maps and masks once, and
-runs every filter of the bank against the resident copies with one call
-of :func:`.distribute.make_matched_filter_step` per (chunk, filter): filter
-build, apply, calibration crop, grid RMS (the ``rms_cells`` kernel), S/N,
-edge trim, and - with device detection - segmentation, object statistics
-and sub-pixel reads, so that only O(K) values per tile come back.  Host
-code then feeds each tile's results to the unchanged photometry and
-catalog stage, through the pipeline's streaming ``consume`` sink.
+Port of ``nemo_tpu/parallel/engine.py``.  The per-tile host engine
+(:mod:`..filters`) processes one tile at a time; this engine stages the
+preprocessed tiles of a survey in chunks of ``deviceBatchSize`` tiles of
+one padded-shape bucket, uploads each chunk's maps and masks once, split
+over the device mesh (:mod:`.mesh`; default: every card, or one CPU
+shard), and runs every filter of the bank against the resident copies
+with one call of :func:`.distribute.make_sharded_matched_filter_step` per
+(chunk, filter): on each shard's device, filter build, apply, calibration
+crop, grid RMS (the ``rms_cells`` kernel), S/N, edge trim, and - with
+device detection - segmentation, object statistics and sub-pixel reads,
+so that only O(K) values per tile come back.  Host code then feeds each
+tile's results, in tile order, to the unchanged photometry and catalog
+stage, through the pipeline's streaming ``consume`` sink.
 
 Enabled with ``useDeviceBatching: true``; filters that need host-only
 features stay on the per-tile engine (:func:`eligibleForBatch`).  The
@@ -22,10 +24,13 @@ Differences from the JAX package, on purpose: a partial chunk is not
 padded up to ``deviceBatchSize`` (eager torch compiles nothing, and every
 output is per tile); downloads are plain ``.cpu()`` copies of the small
 results, with none of the JAX package's remote-link machinery (coalesced
-copy batches, bit-packed masks, pipeline and lag depths); the filter cache
-FITS is written synchronously, and cached-filter reruns read it back (no
-device-resident filter cache); a rerun that applies cached filters writes
-no RMS map (the host engine's rule).
+copy batches, bit-packed masks, pipeline and lag depths); a rerun that
+applies cached filters writes no RMS map (the host engine's rule).
+
+The photometry filter's built filters stay on their shards' devices in
+:data:`.filtercache.DEVICE_CACHE` with their FITS writes deferred; the
+other filters' cache FITS go through the background writer
+(:mod:`.filtercache`), off the chunk's critical path.
 
 Real-space filters (:class:`..filters.RealSpaceMatchedFilter`) take their
 own route: each (tile, label) builds its kernel on the host at staging
@@ -55,8 +60,10 @@ from ..ops import fourier
 from ..ops import noise as noise_ops
 from ..ops import paint as paint_ops
 from ..utils.timing import GLOBAL_TIMER, profile_trace
-from .distribute import (make_matched_filter_step, make_realspace_step,
-                         subpixel_read_batch)
+from . import filtercache
+from .distribute import (make_sharded_matched_filter_step,
+                         make_sharded_realspace_step, subpixel_read_batch)
+from .mesh import get_mesh, tile_sharding
 
 _BATCHABLE_CLASSES = ("BeamMatchedFilter", "ArnaudModelMatchedFilter",
                       "BattagliaModelMatchedFilter")
@@ -312,14 +319,21 @@ def _bankPaintOn(config):
 
 
 def _cachedFilter(filterObj):
-    """(filt, SIGNORM) from the tile's filter cache FITS, or (None, None)
-    when there is none of this filter's half-grid shape."""
-    if filterObj.filterFileName is None \
-            or not os.path.exists(filterObj.filterFileName):
+    """(filt, SIGNORM) of the tile's saved filter, or (None, None) when
+    there is none of this filter's half-grid shape: the device-resident
+    cache's tensor first (on the device of the shard that built it), else
+    the cache FITS (once any pending write of it has landed)."""
+    if filterObj.filterFileName is None:
         return None, None
-    from ..utils import fits as nfits
     nf = len(filterObj.unfilteredMapsDictList)
     halfShape = (nf, filterObj.padShape[0], filterObj.padShape[1] // 2 + 1)
+    ent = filtercache.DEVICE_CACHE.get(filterObj.filterFileName)
+    if ent is not None and tuple(ent["filt"].shape) == halfShape:
+        return ent["filt"], ent["signalNorm"]
+    filtercache.ensure_written(filterObj.filterFileName)
+    if not os.path.exists(filterObj.filterFileName):
+        return None, None
+    from ..utils import fits as nfits
     fdata, fheader = nfits.read_image(filterObj.filterFileName)
     fdata = np.asarray(fdata, dtype=np.float64)
     if tuple(fdata.shape) != halfShape:
@@ -537,17 +551,19 @@ def _pad2(a, padShape):
     return np.pad(a, pad)
 
 
-def batchFilterTiles(config, f, tileNames=None, undoPixelWindow=True,
-                     verbose=True, deviceBatchSize=None):
-    """Filter every tile with one device call per chunk; returns
+def batchFilterTiles(config, f, tileNames=None, mesh=None,
+                     undoPixelWindow=True, verbose=True,
+                     deviceBatchSize=None):
+    """Filter every tile with one sharded device call per chunk; returns
     {tileName: filteredMapDict} with the contract of
     ``filters.filterMaps``."""
     return batchFilterTilesMulti(
-        config, [f], tileNames=tileNames, undoPixelWindow=undoPixelWindow,
-        verbose=verbose, deviceBatchSize=deviceBatchSize)[f["label"]]
+        config, [f], tileNames=tileNames, mesh=mesh,
+        undoPixelWindow=undoPixelWindow, verbose=verbose,
+        deviceBatchSize=deviceBatchSize)[f["label"]]
 
 
-def batchFilterTilesMulti(config, fList, tileNames=None,
+def batchFilterTilesMulti(config, fList, tileNames=None, mesh=None,
                           undoPixelWindow=True, verbose=True,
                           deviceBatchSize=None, consume=None,
                           detectParams=None, diagnosticsDir=None,
@@ -563,7 +579,11 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
     preprocessed once for the whole bank, a bounded look-ahead ahead of
     the device work); a chunk is flushed to the device as soon as
     ``deviceBatchSize`` tiles of one padded-shape bucket are staged
-    (default 2 per device: 2 on one GPU; config key ``deviceBatchSize``).
+    (default 2 per mesh position; config key ``deviceBatchSize``, rounded
+    down to a multiple of the mesh size, at least one tile a position).
+    ``mesh`` (:func:`.mesh.get_mesh`; default every card, or one CPU shard
+    on a CPU policy) splits each chunk over its positions; the photometry
+    and Q-fit stages stay on the policy's device.
     A real-space label's tiles are bucketed apart, per label and true
     tile shape, and each chunk of them runs one real-space step.
 
@@ -577,9 +597,15 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
     """
     tileNames = list(tileNames if tileNames is not None
                      else config.tileNames)
+    mesh = mesh or get_mesh(device=config.policy.device)
+    if any(d.type != config.policy.device.type for d in mesh.devices):
+        raise ValueError("a mesh on %s for a %s policy"
+                         % (mesh.devices, config.policy.device.type))
+    nDev = mesh.size
     if deviceBatchSize is None:
-        deviceBatchSize = int(config.parDict.get("deviceBatchSize", 2))
-    deviceBatchSize = max(1, int(deviceBatchSize))
+        deviceBatchSize = int(config.parDict.get("deviceBatchSize",
+                                                 2 * nDev))
+    deviceBatchSize = max(nDev, (int(deviceBatchSize) // nDev) * nDev)
     ignored = [k for k in _LINK_KEYS if k in config.parDict]
     if ignored and verbose:
         print("... %s: ignored (remote-link pipelining; a local device "
@@ -618,11 +644,12 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
                 labels = [photLabel] + [lb for lb in labels
                                         if lb != photLabel]
             ctx = _stage_bucket_uploads(staged, labels, list(sub),
-                                        padShape, config.policy, gridSize)
+                                        padShape, config.policy, gridSize,
+                                        mesh)
             for label in labels:
                 for n in sub:
                     staged[label].pop(n, None)
-            _process_bucket_shared(config, ctx, gridSize, trimPix,
+            _process_bucket_shared(config, ctx, gridSize, trimPix, mesh,
                                    undoPixelWindow, verbose, results,
                                    consume=consume,
                                    detectParams=detectParams,
@@ -634,7 +661,8 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
         _, _, gridSize, trimPix = key
         entries = {n: staged[label].pop(n) for n in names}
         _run_bucket_realspace(config, entries, names, gridSize, trimPix,
-                              undoPixelWindow, verbose, results, label,
+                              mesh, undoPixelWindow, verbose, results,
+                              label,
                               consume=consume, chunkIdx=run["chunk"],
                               diagnosticsDir=diagnosticsDir,
                               stageWait=_filedWait())
@@ -707,6 +735,9 @@ def batchFilterTilesMulti(config, fList, tileNames=None,
     for key, bucket in buckets.items():
         if bucket["names"]:
             _flush(key, bucket)
+    # the cache FITS queued on the background writer are on disk when the
+    # run returns (the photometry filter's deferred ones: on demand)
+    filtercache.WRITER.flush()
     if verbose:
         print("    [batch total %.1fs; staging-worker wait %.1fs]"
               % (time.time() - run["t0"], run["stageWait"]), flush=True)
@@ -756,12 +787,26 @@ def _writeRMSMap(config, filterObj, tileName, RMSMap):
 
 
 def _download(t, tPhase):
-    """Device -> host copy of a small result, timed as download."""
+    """Device -> host copy of a small result, timed as download; a batch
+    given as per-shard tensors comes back as one array in tile order."""
     t0 = time.time()
-    a = t.cpu().numpy()
+    if isinstance(t, list):
+        a = np.concatenate([x.cpu().numpy() for x in t])
+    else:
+        a = t.cpu().numpy()
     tPhase["download"] += time.time() - t0
     tPhase["downBytes"] += a.nbytes
     return a
+
+
+def _tile(parts, i):
+    """Tile ``i`` of a batch given as per-shard tensors (a view on its
+    shard's device)."""
+    for p in parts:
+        if i < p.shape[0]:
+            return p[i]
+        i -= p.shape[0]
+    raise IndexError("tile index out of range")
 
 
 def _calibNormsFromCrops(crops, stepNorms, st, names, padShape):
@@ -807,25 +852,43 @@ def _calibNormsFromCrops(crops, stepNorms, st, names, padShape):
     return norms, fRelW
 
 
-def _saveFilterCaches(st, names, filt, tPhase, hostNorms, fRelW):
-    """Write the filter cache FITS in the host engine's ``saveFilter``
+def _saveFilterCaches(st, names, filt, tPhase, hostNorms, fRelW,
+                      deviceCache=False):
+    """Save each tile's built filter in the host engine's ``saveFilter``
     format ((nf, PY, PX//2+1) float64, SIGNORM + RW* headers) from the
-    step's ``return_filter`` output; fitQ and getFRelWeights read these,
-    in this package or the JAX one."""
+    step's ``return_filter`` output (per-shard tensors); fitQ and
+    getFRelWeights read these, in this package or the JAX one.
+
+    With ``deviceCache`` (the photometry filter) each tile's filter is
+    held in :data:`.filtercache.DEVICE_CACHE` on its shard's device and
+    its FITS write deferred (fitQ and getFRelWeights read the cache);
+    otherwise, or past the cache's budget, the FITS write is queued on the
+    background writer."""
     from ..utils import fits as nfits
 
+    t0 = time.time()
     for i, tileName in enumerate(names):
         filterObj, stacks = st[tileName]
         header = nfits.Header()
         # host convention: signalNorm includes the output-units scale
-        header["SIGNORM"] = float(hostNorms[i] * stacks["unitsScale"])
+        signalNorm = float(hostNorms[i] * stacks["unitsScale"])
+        header["SIGNORM"] = signalNorm
+        fRelWeights = {}
         for count, m in enumerate(filterObj.unfilteredMapsDictList,
                                   start=1):
             header["RW%d_GHZ" % count] = m["obsFreqGHz"]
             header["RW%d" % count] = float(fRelW[i, count - 1])
-        data = _download(filt[i], tPhase).astype(np.float64)
-        os.makedirs(os.path.dirname(filterObj.filterFileName), exist_ok=True)
-        nfits.write_image(filterObj.filterFileName, data, header)
+            fRelWeights[m["obsFreqGHz"]] = float(fRelW[i, count - 1])
+        # its own buffer, so the chunk's stacked output can be freed
+        filtDev = _tile(filt, i).clone()
+        if deviceCache and filtercache.DEVICE_CACHE.put(
+                filterObj.filterFileName, filtDev, signalNorm, fRelWeights):
+            filtercache.register_deferred(filterObj.filterFileName, filtDev,
+                                          header)
+        else:
+            filtercache.WRITER.enqueue(filterObj.filterFileName, filtDev,
+                                       header)
+    tPhase["download"] += time.time() - t0
 
 
 def _emit_overflow_fallback(config, out, i, filterObj, tileName, shape,
@@ -836,8 +899,9 @@ def _emit_overflow_fallback(config, out, i, filterObj, tileName, shape,
     in the step) come off the device, and the pipeline's host
     ``findObjects`` - which has no object cap - takes over for it.  The
     reference filter's maps ride along for the fixed_ columns."""
-    fullF = _download(out["filtered"][i, :shape[0], :shape[1]], tPhase)
-    fullSN = _download(out["SNMap"][i, :shape[0], :shape[1]], tPhase)
+    fullF = _download(_tile(out["filtered"], i)[:shape[0], :shape[1]],
+                      tPhase)
+    fullSN = _download(_tile(out["SNMap"], i)[:shape[0], :shape[1]], tPhase)
     nCyT = noise_ops.n_cells(shape[0], gridSize)
     nCxT = noise_ops.n_cells(shape[1], gridSize)
     rms = noise_ops.assemble_rms_host(cellsI[:nCyT, :nCxT], shape[0],
@@ -848,8 +912,9 @@ def _emit_overflow_fallback(config, out, i, filterObj, tileName, shape,
                 "wcs": filterObj.wcs, "label": filterObj.label,
                 "tileName": tileName}, **_unitsMeta(filterObj))
     if photRes is not None and label != photLabel:
-        pSN = _download(photRes["SNMap"][i, :shape[0], :shape[1]], tPhase)
-        pD = _download(photRes["filtered"][i, :shape[0], :shape[1]],
+        pSN = _download(_tile(photRes["SNMap"], i)[:shape[0], :shape[1]],
+                        tPhase)
+        pD = _download(_tile(photRes["filtered"], i)[:shape[0], :shape[1]],
                        tPhase) * photRes["scale"][i]
         res["photMapsDict"] = {"SNMap": pSN, "data": pD}
     elif photRes is None and photLabel is not None and label != photLabel:
@@ -876,21 +941,25 @@ def _consume_detect_results(config, st, names, out, gridSize, trimPix,
     maxObjects = detectParams[1]
     cutWindow = detectParams[4]
     useCom = detectParams[3]
-    nT = len(names)
     det = out["det"]
-    valParts = [out["subSpline"], out["subNearest"]]
     hasPhotSub = photRes is not None and label != photLabel
-    if hasPhotSub:
-        ys = det["comY"] if useCom else det["peakY"].to(out["SNMap"].dtype)
-        xs = det["comX"] if useCom else det["peakX"].to(out["SNMap"].dtype)
-        valParts += list(subpixel_read_batch(photRes["SNMap"],
-                                             photRes["filtered"], ys, xs,
-                                             window=cutWindow))
-    packed = _download(torch.stack([det[k].to(torch.float32)
-                                    for k in _DET_KEYS], dim=-1), tPhase)
+    packed, valParts = [], []
+    for k in range(len(out["SNMap"])):       # each shard on its device
+        dt = out["SNMap"][k].dtype
+        parts = [out["subSpline"][k], out["subNearest"][k]]
+        if hasPhotSub:
+            ys = det["comY"][k] if useCom else det["peakY"][k].to(dt)
+            xs = det["comX"][k] if useCom else det["peakX"][k].to(dt)
+            parts += list(subpixel_read_batch(
+                photRes["SNMap"][k], photRes["filtered"][k], ys, xs,
+                window=cutWindow))
+        valParts.append(torch.cat(parts, dim=-1))
+        packed.append(torch.stack([det[key][k].to(torch.float32)
+                                   for key in _DET_KEYS], dim=-1))
+    packed = _download(packed, tPhase)
     detNp = {k: packed[..., j] for j, k in enumerate(_DET_KEYS)}
     nObjects = _download(det["nObjects"], tPhase)
-    vals = _download(torch.cat(valParts, dim=-1), tPhase)
+    vals = _download(valParts, tPhase)
     cells = _download(out["RMSCells"], tPhase)
 
     for i, tileName in enumerate(names):
@@ -912,7 +981,7 @@ def _consume_detect_results(config, st, names, out, gridSize, trimPix,
                             ).astype(float)
             else:
                 tileMask = _download(
-                    out["surveyMask"][i, :shape[0], :shape[1]],
+                    _tile(out["surveyMask"], i)[:shape[0], :shape[1]],
                     tPhase).astype(float)
             seenTiles.add(tileName)
         if overflow:
@@ -969,21 +1038,31 @@ def _deliver(label, tileName, res, results, consume, tPhase):
 
 
 def _stage_bucket_uploads(staged, labels, names, padShape, policy,
-                          gridSize):
+                          gridSize, mesh):
     """Snapshot one tile chunk's staged state and upload its big
-    label-independent arrays (data, apodisation, masks) to the policy's
-    device, cast once to the policy dtype (staging stays float64)."""
+    label-independent arrays (data, apodisation, masks), each shard's
+    tiles to that shard's device (:func:`.mesh.tile_sharding`), cast once
+    to the policy dtype (staging stays float64).  Every uploaded input is
+    a list of per-shard tensors; ``putDedup`` uploads a label's stacks
+    the same way."""
     t0 = time.time()
     P = policy
+    shards = tile_sharding(mesh).slices(len(names))
 
-    def _put(arrs):
-        return P.tensor(np.stack([_pad2(a, padShape) for a in arrs]))
+    def _sharded(fn, arrs, *extra):
+        return [fn(dev, arrs[sl], *[e[sl] for e in extra])
+                for dev, sl in shards]
 
-    def _putDedup(arrs):
-        """Upload only the distinct arrays of a tile-stacked input (by
+    def _put1(dev, arrs):
+        return torch.as_tensor(np.stack([_pad2(a, padShape) for a in arrs]),
+                               dtype=P.dtype, device=dev)
+
+    def _putDedup1(dev, arrs):
+        """Upload only the distinct arrays of a shard's stacked input (by
         identity: same-geometry tiles share staged arrays) and gather the
-        full stack on the device; device-resident inputs (the template
-        caches) are padded and stacked in place."""
+        shard's stack on its device; device-resident inputs (the template
+        caches, on the policy's device) are moved to the shard's device,
+        padded and stacked there."""
         seen, idx = {}, []
         for a in arrs:
             idx.append(seen.setdefault(id(a), len(seen)))
@@ -992,16 +1071,15 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
             uniq[seen[id(a)]] = a
         if not any(isinstance(a, torch.Tensor) for a in uniq):
             if len(uniq) == len(arrs):
-                return _put(arrs)
-            uniqDev = _put(uniq)
+                return _put1(dev, arrs)
+            uniqDev = _put1(dev, uniq)
         else:
             uniqDev = torch.stack([fourier.pad_to(
-                P.tensor(a) if not isinstance(a, torch.Tensor)
-                else a.to(device=P.device, dtype=P.dtype), padShape)
+                torch.as_tensor(a, dtype=P.dtype, device=dev), padShape)
                 for a in uniq])
-        return uniqDev[torch.as_tensor(idx, device=P.device)]
+        return uniqDev[torch.as_tensor(idx, device=dev)]
 
-    def _putMask(arrs, shapes):
+    def _putMask1(dev, arrs, shapes):
         """Binary masks go up as uint8; an all-ones mask is synthesised on
         the device (ones over the true tile shape, zeros in the
         padding)."""
@@ -1009,12 +1087,12 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
         if not all(a.dtype == np.uint8 and a.min() == 1 for a in arrs):
             if all(a.dtype == np.uint8 for a in arrs):
                 return torch.as_tensor(np.stack(
-                    [_pad2(a, padShape) for a in arrs]), device=P.device)
-            return _put(arrs)
-        sy = torch.as_tensor([s[0] for s in shapes], device=P.device)
-        sx = torch.as_tensor([s[1] for s in shapes], device=P.device)
-        yy = torch.arange(padShape[0], device=P.device)
-        xx = torch.arange(padShape[1], device=P.device)
+                    [_pad2(a, padShape) for a in arrs]), device=dev)
+            return _put1(dev, arrs)
+        sy = torch.as_tensor([s[0] for s in shapes], device=dev)
+        sx = torch.as_tensor([s[1] for s in shapes], device=dev)
+        yy = torch.arange(padShape[0], device=dev)
+        xx = torch.arange(padShape[1], device=dev)
         return ((yy[None, :, None] < sy[:, None, None])
                 & (xx[None, None, :] < sx[:, None, None])).to(torch.uint8)
 
@@ -1023,14 +1101,16 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
     common = [snapshot[labels[0]][n][1]["common"] for n in names]
     shapes = [c["shape"] for c in common]
     ctx = {"labels": labels, "names": names, "padShape": padShape,
-           "snapshot": snapshot, "nT": len(names),
-           "putDedup": _putDedup,
-           "dataDev": _put([c["data"] for c in common]),
-           "apodDev": _putDedup([c["apodM"] for c in common]),
-           "psDev": _putMask([c["psMask"] for c in common], shapes),
-           "surveyDev": _putMask([c["surveyMask"] for c in common], shapes),
-           "peakDev": torch.as_tensor([[s[0] // 2, s[1] // 2]
-                                       for s in shapes], device=P.device),
+           "snapshot": snapshot, "nT": len(names), "shards": shards,
+           "putDedup": lambda arrs: _sharded(_putDedup1, arrs),
+           "dataDev": _sharded(_put1, [c["data"] for c in common]),
+           "apodDev": _sharded(_putDedup1, [c["apodM"] for c in common]),
+           "psDev": _sharded(_putMask1, [c["psMask"] for c in common],
+                             shapes),
+           "surveyDev": _sharded(_putMask1,
+                                 [c["surveyMask"] for c in common], shapes),
+           "peakDev": _sharded(lambda dev, sh: torch.as_tensor(
+               [[s[0] // 2, s[1] // 2] for s in sh], device=dev), shapes),
            # per-tile true-shape noise-cell geometry (host int tables)
            "meta": noise_ops.cell_meta_batch(shapes, padShape, gridSize)}
     ctx["stageUpload"] = time.time() - t0
@@ -1065,9 +1145,11 @@ def _finish_label_lean(config, st, names, out, gridSize, label, tPhase,
                  consume, tPhase)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices):
+    """Wait for the work queued on each cuda device of ``devices``."""
+    for device in dict.fromkeys(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 # One warm chunk's trace (the CLI's --profile): chunk 0 pays the first
@@ -1092,9 +1174,10 @@ def _process_bucket_shared(*args, **kwargs):
     return _process_bucket(*args, **kwargs)
 
 
-def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
-                    verbose, results, consume=None, detectParams=None,
-                    chunkIdx=0, diagnosticsDir=None, stageWait=0.0):
+def _process_bucket(config, ctx, gridSize, trimPix, mesh,
+                    undoPixelWindow, verbose, results, consume=None,
+                    detectParams=None, chunkIdx=0, diagnosticsDir=None,
+                    stageWait=0.0):
     """Run one uploaded tile chunk through every filter of the bank, the
     photometry filter first (its maps stay resident for the other labels'
     fixed_ reads), and emit each label's results before the next runs.
@@ -1104,8 +1187,9 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
     in the steps (device work included: each step ends in a device
     sync), downloading, in the host catalog stage (``consume``) and in
     the rest of the host emission (``hostOther``: calibration reads, map
-    and filter FITS writes); (tile, label) pairs that took device
-    detection and that overflowed to host detection."""
+    FITS writes); (tile, label) pairs that took device detection and that
+    overflowed to host detection; each shard's tile count (``shards``)
+    and its steps' device seconds (``shardStep``)."""
     tChunk0 = time.time()
     cpu0 = time.process_time()
     labels = ctx["labels"]
@@ -1113,12 +1197,15 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
     padShape = ctx["padShape"]
     snapshot = ctx["snapshot"]
     dataDev = ctx["dataDev"]
-    dev = dataDev.device
+    shards = ctx["shards"]
+    devs = [d.device for d in dataDev]
     P = config.policy
     if verbose:
         print("... device batch: %d tile(s) x %d filter(s) at %s"
               % (len(names), len(labels), str(padShape)), flush=True)
     tPhase = _new_budget(stageWait, ctx["stageUpload"])
+    tPhase["shards"] = [sl.stop - sl.start for _, sl in shards]
+    tPhase["shardStep"] = [0.0] * len(shards)
     halfShape = (padShape[0], padShape[1] // 2 + 1)
 
     photLabel = config.parDict.get("photFilter")
@@ -1136,15 +1223,17 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
         # a rerun on cached filters writes no RMS map, as the host engine
         # (MatchedFilter.buildAndApply) does when it loads a cache
         saveRMS = params0.get("saveRMSMap") and not given
-        step = make_matched_filter_step(
-            gridSize, trimPix, lean_outputs=not useDetect,
+        step = make_sharded_matched_filter_step(
+            mesh, gridSize, trimPix, lean_outputs=not useDetect,
             detect_params=detectParams if useDetect else None,
             return_filter=wantFilter, given_filter=given)
         t0 = time.time()
         if given:
-            out = step(dataDev, P.tensor(np.stack(
-                [sk["cachedFilt"] for sk in stacksList])), ctx["apodDev"],
-                ctx["psDev"], ctx["surveyDev"], ctx["meta"])
+            # a device-cached filter moves to its shard's device
+            out = step(dataDev, [torch.stack([
+                torch.as_tensor(sk["cachedFilt"], dtype=P.dtype, device=dev)
+                for sk in stacksList[sl]]) for dev, sl in shards],
+                ctx["apodDev"], ctx["psDev"], ctx["surveyDev"], ctx["meta"])
         else:
             noiseDev = dataDev if all(sk["noise"] is sk["data"]
                                       for sk in stacksList) \
@@ -1152,11 +1241,15 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
             # -inf, not 0: the step's max(prods, fg) must be a no-op but
             # for max(dataMap,CMB) (about half the cross-band covariance
             # is negative)
-            fgDev = torch.full((len(names),) + halfShape, float("-inf"),
-                               dtype=P.dtype, device=dev)
-            for i, sk in enumerate(stacksList):
-                if sk["fgPower"] is not None:
-                    fgDev[i] = P.tensor(sk["fgPower"])
+            fgDev = []
+            for dev, sl in shards:
+                fg = torch.full((sl.stop - sl.start,) + halfShape,
+                                float("-inf"), dtype=P.dtype, device=dev)
+                for j, sk in enumerate(stacksList[sl]):
+                    if sk["fgPower"] is not None:
+                        fg[j] = torch.as_tensor(sk["fgPower"], dtype=P.dtype,
+                                                device=dev)
+                fgDev.append(fg)
             out = step(dataDev, noiseDev,
                        ctx["putDedup"]([sk["template"]
                                         for sk in stacksList]),
@@ -1164,8 +1257,10 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
                        P.tensor(stacksList[0]["w"]), ctx["apodDev"],
                        ctx["psDev"], ctx["surveyDev"], fgDev,
                        ctx["peakDev"], ctx["meta"])
-        _sync(dev)
+        _sync(devs)
         tPhase["step"] += time.time() - t0
+        for k, timer in enumerate(out.pop("stepTimer")):
+            tPhase["shardStep"][k] += timer.seconds()
 
         tEmit, down0, cons0 = time.time(), tPhase["download"], \
             tPhase["consume"]
@@ -1180,7 +1275,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
                 _download(out["signalNorm"], tPhase), st, names, padShape)
         if wantFilter:
             _saveFilterCaches(st, names, out["filt"], tPhase, hostNorms,
-                              fRelW)
+                              fRelW, deviceCache=(label == photLabel))
         if useDetect:
             tPhase["detectLabels"] += 1
             _consume_detect_results(
@@ -1209,7 +1304,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, undoPixelWindow,
                  tPhase["hostOther"], tPhase["detectLabels"], len(labels),
                  tPhase["overflowTiles"]), flush=True)
     _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, len(names),
-                  len(labels), padShape, dev, tChunk0, cpu0)
+                  len(labels), padShape, devs, tChunk0, cpu0)
 
 
 def _new_budget(stageWait, upload):
@@ -1220,13 +1315,15 @@ def _new_budget(stageWait, upload):
 
 
 def _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, nTiles,
-                  nLabels, padShape, dev, tChunk0, cpu0):
-    """Append one chunk's budget to ``diagnostics/chunk_budgets.jsonl``."""
+                  nLabels, padShape, devs, tChunk0, cpu0):
+    """Append one chunk's budget to ``diagnostics/chunk_budgets.jsonl``;
+    ``device`` names the shards' distinct devices."""
     diagnosticsDir = diagnosticsDir or config.diagnosticsDir
     if not diagnosticsDir:
         return
     rec = dict(tPhase, chunk=chunkIdx, nTiles=nTiles, nLabels=nLabels,
-               padShape=list(padShape), device=str(dev),
+               padShape=list(padShape),
+               device=",".join(dict.fromkeys(str(d) for d in devs)),
                t_wall=time.time(), wall_s=time.time() - tChunk0,
                cpu_s=time.process_time() - cpu0)
     os.makedirs(diagnosticsDir, exist_ok=True)
@@ -1236,7 +1333,7 @@ def _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, nTiles,
 
 
 def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
-                          undoPixelWindow, verbose, results, label,
+                          mesh, undoPixelWindow, verbose, results, label,
                           consume=None, chunkIdx=0, diagnosticsDir=None,
                           stageWait=0.0):
     """One real-space step for a chunk of one label's same-shaped tiles
@@ -1257,27 +1354,32 @@ def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
     kShape = (max(st["kern"].shape[-2] for st in stacks),
               max(st["kern"].shape[-1] for st in stacks))
     t0 = time.time()
-    inputs = [P.tensor(np.stack(arrs)) for arrs in (
-        [st["data"] for st in stacks],
-        [_padKernels(st["kern"], kShape) for st in stacks],
-        [st["signalNorm"] for st in stacks],
-        [st["apodM"] for st in stacks],
-        [st["psMask"] for st in stacks],
-        [st["surveyMask"] for st in stacks])]
-    dev = inputs[0].device
-    _sync(dev)
+    shards = tile_sharding(mesh).slices(len(names))
+    inputs = [[torch.as_tensor(np.stack(arrs[sl]), dtype=P.dtype,
+                               device=dev) for dev, sl in shards]
+              for arrs in (
+                  [st["data"] for st in stacks],
+                  [_padKernels(st["kern"], kShape) for st in stacks],
+                  [st["signalNorm"] for st in stacks],
+                  [st["apodM"] for st in stacks],
+                  [st["psMask"] for st in stacks],
+                  [st["surveyMask"] for st in stacks])]
+    devs = [dev for dev, _ in shards]
+    _sync(devs)
     tPhase = dict(_new_budget(stageWait, time.time() - t0),
                   kernelBuild=sum(st["kernelSeconds"] for st in stacks),
-                  staging=sum(st["stageSeconds"] for st in stacks))
+                  staging=sum(st["stageSeconds"] for st in stacks),
+                  shards=[sl.stop - sl.start for _, sl in shards])
     # the true shape is the batch shape: the noise cells of every tile
     # are laid out on it
     meta = noise_ops.cell_meta_batch([shape] * len(names), shape, gridSize)
-    step = make_realspace_step(gridSize, trimPix,
-                               undo_pixel_window=undoPixelWindow)
+    step = make_sharded_realspace_step(mesh, gridSize, trimPix,
+                                       undo_pixel_window=undoPixelWindow)
     t0 = time.time()
     out = step(*inputs, meta)
-    _sync(dev)
+    _sync(devs)
     tPhase["step"] = time.time() - t0
+    tPhase["shardStep"] = [t.seconds() for t in out.pop("stepTimer")]
 
     tEmit = time.time()
     filtered = _download(out["filtered"], tPhase)
@@ -1303,4 +1405,4 @@ def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
                  tPhase["hostOther"], tPhase["staging"],
                  tPhase["kernelBuild"]), flush=True)
     _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, len(names), 1,
-                  shape, dev, tChunk0, cpu0)
+                  shape, devs, tChunk0, cpu0)

@@ -480,7 +480,7 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
             config, eligible, undoPixelWindow=undoPixelWindow,
             verbose=verbose, consume=consume, detectParams=detectParams,
             diagnosticsDir=diagnosticsDir,
-            useCachedFilters=useCachedFilters)
+            useCachedFilters=useCachedFilters, mesh=config.mesh)
 
 
 def makeMockClusterCatalog(config, numMocksToMake=1, combineMocks=False,

@@ -195,15 +195,19 @@ class NemoConfig:
     compatibility (one process runs every tile).  ``config`` is a .yml
     path, or a dict already parsed by :func:`parseConfigDict`.
     ``device``/``x64`` set the device policy (:func:`device.policy`):
-    "cuda" (float32, float64 with ``x64``) or "cpu" (float64).
+    "cuda" (float32, float64 with ``x64``) or "cpu" (float64).  ``mesh``
+    (:func:`parallel.mesh.get_mesh`) is the batched engine's tile mesh;
+    None gives every card (one CPU shard on the CPU).
     """
 
     def __init__(self, config, makeOutputDirs=True, setUpMaps=True,
                  writeTileInfo=False, selFnDir=None, calcSelFn=False,
                  sourceInjectionTest=False, MPIEnabled=False,
                  divideTilesByProcesses=True, verbose=True,
-                 strictMPIExceptions=True, device="cuda", x64=False):
+                 strictMPIExceptions=True, device="cuda", x64=False,
+                 mesh=None):
         self.policy = device_mod.policy(device, x64=x64)
+        self.mesh = mesh
         self.MPIEnabled = False
         self.rank = 0
         self.size = 1

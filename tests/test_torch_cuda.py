@@ -455,6 +455,112 @@ def test_given_step_on_card_matches_cpu(cuda_card):
                                   ref["surveyMask"].numpy())
 
 
+@pytest.fixture
+def second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (a launch on cuda:1)")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_two_shard_mesh_on_one_card(cuda_card):
+    """The sharded production step on two virtual shards of cuda:0, float64,
+    against the one-device step on the CPU: the detection tail within
+    rtol 1e-9; each shard launched rms_cells and label_components once on
+    cuda:0, and no plain version ran."""
+    from nemo_tpu_torch.ops import detect as td
+    from nemo_tpu_torch.parallel import distribute, mesh
+    args, meta, grid = step_inputs()
+    ref = run_step("cpu", torch.float64, args, meta, grid)
+    m = mesh.get_mesh(devices=["cuda:0"] * 2)
+    sh = mesh.tile_sharding(m)
+    put = {k: torch.as_tensor(v, device=cuda_card) if k == "w"
+           else sh.put(v) for k, v in args.items()}
+    step = distribute.make_sharded_matched_filter_step(
+        m, grid, 10, detect_params=(3.0, 24, 128, True, 8))
+    rms0 = tn.rms_cells.device_launches.get("cuda:0", 0)
+    lab0 = td.label_components_batch.device_launches.get("cuda:0", 0)
+    plain = (tn._rms_cells_plain.calls, td._label_components_plain.calls)
+    out = step(put["data"], put["data"], put["template"], put["calib"],
+               put["w"], put["apodM"], put["psMask"], put["surveyMask"],
+               put["fg"], put["peakYX"], meta)
+    torch.cuda.synchronize()
+    assert tn.rms_cells.device_launches["cuda:0"] == rms0 + 2
+    assert td.label_components_batch.device_launches["cuda:0"] == lab0 + 2
+    assert (tn._rms_cells_plain.calls,
+            td._label_components_plain.calls) == plain
+    assert [p.shape[0] for p in out["SNMap"]] == [2, 2]
+    assert all(t.seconds() > 0 for t in out["stepTimer"])
+    valid = ref["det"]["valid"].numpy()
+    got = {k: torch.cat(out[k]).cpu().numpy() for k in (
+        "filtered", "SNMap", "RMSCells", "signalNorm", "calibCrop")}
+    np.testing.assert_array_equal(
+        torch.cat(out["det"]["valid"]).cpu().numpy(), valid)
+    for k, g in got.items():
+        r = ref[k].numpy()
+        np.testing.assert_allclose(g, r, rtol=1e-9,
+                                   atol=1e-9 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rms_cells", "label_components",
+                                    "boltzmann_rk4", "legendre_contract"])
+def test_kernel_launches_on_a_second_card(second_card, kernel):
+    """Each kernel's library (nvcc's static runtime, loaded with ctypes)
+    launches on cuda:1 when its tensors live there: the result stays on
+    cuda:1 and equals its plain version's (rms_cells float64 rtol 1e-10,
+    the labels and the Legendre synthesis bitwise, the Boltzmann transfer
+    rtol 1e-9), and the launch is counted on cuda:1."""
+    dev = second_card
+    key = str(dev)
+    if kernel == "rms_cells":
+        shapes = [(300, 420), (280, 400)]
+        meta = tn.cell_meta_batch(shapes, (300, 420), 64)
+        tabs, window, pad = tn.meta_cell_tables(meta, 64, (300, 420), 2,
+                                                dev)
+        padded = torch.nn.functional.pad(torch.as_tensor(
+            cell_map(4, 2, (300, 420)), device=dev), pad).contiguous()
+        n0 = tn.rms_cells.device_launches.get(key, 0)
+        got = tn.rms_cells(padded, *tabs, window)
+        torch.cuda.synchronize(dev)
+        assert tn.rms_cells.device_launches[key] == n0 + 1
+        ref = tn._rms_cells_plain(padded, *tabs, window)
+        assert got.device == dev
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-10, atol=0)
+    elif kernel == "label_components":
+        from nemo_tpu_torch.ops import detect as td
+        mask = sn_masks(T=2, shape=(300, 420))["snake"].to(dev)
+        n0 = td.label_components_batch.device_launches.get(key, 0)
+        got = td.label_components_batch(mask)
+        torch.cuda.synchronize(dev)
+        assert td.label_components_batch.device_launches[key] == n0 + 1
+        assert got.device == dev
+        assert torch.equal(got, td._label_components_plain(mask, 128))
+    elif kernel == "boltzmann_rk4":
+        from nemo_tpu_torch.models import boltzmann as tb
+        bg = tb._solver_tables(70.0, 0.3, 0.05, 2048)
+        k = torch.as_tensor(np.logspace(-2, 1, 8), device=dev)
+        T, _ = tb._transfer_cuda(k, bg)
+        torch.cuda.synchronize(dev)
+        assert T.device == dev
+        np.testing.assert_allclose(T.cpu().numpy(),
+                                   tb._transfer_plain(k, bg)[0].cpu().numpy(),
+                                   rtol=1e-9, atol=0)
+    else:
+        from nemo_tpu_torch.ops import sht
+        thetas, are, aim, _, _, _ = legendre_inputs(lmax=200, nrings=120)
+        got = sht.legendre_contract(thetas, are, aim, 200, 200,
+                                    dtype=torch.float64, device=dev)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev
+        ref = sht._legendre_contract_plain(
+            torch.as_tensor(thetas, device=dev), torch.as_tensor(are,
+                                                                 device=dev),
+            torch.as_tensor(aim, device=dev), 200, 200, False, None)
+        assert torch.equal(got, ref)
+
+
 def legendre_inputs(seed=9, lmax=300, nrings=200, decLo=-62.0, decHi=-54.5):
     """Ring colatitudes of a dec -62..-54.5 tile, random alm (lmax+1)^2
     falling as 1/l, and random ring coefficients (lmax+1, nrings)."""

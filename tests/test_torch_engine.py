@@ -28,7 +28,7 @@ from nemo_tpu import startup as jstartup
 from nemo_tpu_torch import catalogs, pipelines, startup
 from nemo_tpu_torch.models import beams, profiles, sz
 from nemo_tpu_torch.ops import fourier, paint
-from nemo_tpu_torch.parallel import engine
+from nemo_tpu_torch.parallel import engine, filtercache
 from nemo_tpu_torch.utils import fits as nfits
 from nemo_tpu_torch.utils import wcs as nwcs
 from nemo_tpu_torch.utils.tables import Table
@@ -264,6 +264,9 @@ def test_filter_cache_loads_in_jax_package(survey):
     det, host = survey["detConfig"], survey["hostConfig"]
     jconfig = survey["jaxConfig"]
     f = next(f for f in jconfig.parDict["mapFilters"] if f["label"] == PHOT)
+    # the photometry filter is device-resident with its FITS deferred to
+    # the process's exit (or a reader's ensure_written): write it now
+    filtercache.flush(materialize_deferred=True)
     for tileName in det.tileNames:
         loaders = []
         for diag in (det.diagnosticsDir, host.diagnosticsDir):

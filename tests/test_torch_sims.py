@@ -37,6 +37,7 @@ from nemo_tpu_torch import pipelines, startup
 from nemo_tpu_torch.cli import nemoModel_main
 from nemo_tpu_torch.models import beams
 from nemo_tpu_torch.ops import grf, sht
+from nemo_tpu_torch.parallel import filtercache
 from nemo_tpu_torch.utils import fits as nfits
 from nemo_tpu_torch.utils import wcs as nwcs
 from nemo_tpu_torch.utils.tables import Table
@@ -301,6 +302,9 @@ def _same_catalog(got, ref, tol=1e-6):
 
 
 def _same_filters(config, jconfig, tol=1e-9):
+    # the batched engine's photometry filters are device-resident with
+    # their FITS deferred to the process's exit: write them now
+    filtercache.flush(materialize_deferred=True)
     n = 0
     for tile in jconfig.tileNames:
         for f in jconfig.parDict["mapFilters"]:
