@@ -813,11 +813,11 @@ def run_search(configDict, device, outName, mesh=None):
     import copy
     from nemo_tpu_torch import pipelines, startup
     from nemo_tpu_torch.cli import nemo_main
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    from nemo_tpu_torch.utils.timing import RECORDER
 
     parDict = startup.parseConfigDict(copy.deepcopy(configDict))
     parDict["outputDir"] = os.path.join(WORK, outName)
-    GLOBAL_TIMER.__init__()
+    RECORDER.reset()
     t0 = time.perf_counter()
     config = startup.NemoConfig(parDict, device=device, writeTileInfo=True,
                                 mesh=mesh)
@@ -836,7 +836,7 @@ def run_search(configDict, device, outName, mesh=None):
         if not np.all(np.isfinite(np.asarray(catalog[key], dtype=float))):
             raise RuntimeError("non-finite %s in the %s catalog"
                                % (key, device))
-    return catalog, secs, dict(GLOBAL_TIMER.stages)
+    return catalog, secs, dict(RECORDER.totals)
 
 
 def match(truth, catalog, radiusArcmin):
@@ -1266,13 +1266,13 @@ def epilogue_phase(noise, detect, card, surveyDict, truth, device="cuda"):
     from nemo_tpu_torch.cli import nemo_main
     from nemo_tpu_torch.models import cosmology, qfit
     from nemo_tpu_torch.utils.tables import Table
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    from nemo_tpu_torch.utils.timing import RECORDER
 
     from nemo_tpu_torch.parallel import filtercache
 
     cfgPath, d, outDir = epilogue_config(surveyDict, truth)
     nTiles = len(d["tileDefinitions"])
-    GLOBAL_TIMER.__init__()
+    RECORDER.reset()
     deferred = []
 
     def count_deferred(orig):
@@ -1289,7 +1289,7 @@ def epilogue_phase(noise, detect, card, surveyDict, truth, device="cuda"):
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts(noise, detect)
-    stages = dict(GLOBAL_TIMER.stages)
+    stages = dict(RECORDER.totals)
     if device == "cuda" and (counts["boltzmann"] != 1
                              or counts["boltzmann_plain"] != 0
                              or counts["rms_cells"] <= 0
@@ -1791,13 +1791,13 @@ def injection_phase(noise, detect, card, surveyDict, device="cuda"):
     from nemo_tpu_torch import maps, startup
     from nemo_tpu_torch.cli import nemo_main
     from nemo_tpu_torch.utils.tables import Table
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    from nemo_tpu_torch.utils.timing import RECORDER
 
     paint_timings(card, surveyDict, device)
     cfgPath, d = injection_config(surveyDict, "batched")
     nTiles = len(d["tileDefinitions"])
     logB, counts = [], {}
-    GLOBAL_TIMER.__init__()
+    RECORDER.reset()
     reset_counts(noise, detect)
     t0 = time.perf_counter()
     onCard = device == "cuda"
@@ -1809,7 +1809,7 @@ def injection_phase(noise, detect, card, surveyDict, device="cuda"):
     secs = time.perf_counter() - t0
     whole = read_counts(noise, detect)
     reruns = counts["reruns"]
-    stages = dict(GLOBAL_TIMER.stages)
+    stages = dict(RECORDER.totals)
     if len(logB) != INJ_ITERATIONS or any(
             len(it["chunks"]) != 1 or it["chunks"][0]["givenLabels"] != 1
             for it in logB):
@@ -2293,7 +2293,7 @@ def sims_search_phase(noise, detect, card, device="cuda"):
     import torch
     from nemo_tpu_torch import maps
     from nemo_tpu_torch.cli import nemo_main
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    from nemo_tpu_torch.utils.timing import RECORDER
 
     onCard = device == "cuda"
     t0 = time.perf_counter()
@@ -2312,7 +2312,7 @@ def sims_search_phase(noise, detect, card, device="cuda"):
         targets = sim_recorder(log)
         if method == "model":
             targets += (stack_recorder(stacks, SIM_CHECK_TILE),)
-        GLOBAL_TIMER.__init__()
+        RECORDER.reset()
         reset_counts(noise, detect)
         reset_sim_counts()
         t0 = time.perf_counter()
@@ -2330,7 +2330,7 @@ def sims_search_phase(noise, detect, card, device="cuda"):
               "objects, %d/%d clusters within 1' (%s)"
               % (device, method, nTiles, len(SIM_LABELS), secs,
                  json.dumps({k: round(v, 3) for k, v in
-                             sorted(GLOBAL_TIMER.stages.items())}),
+                             sorted(RECORDER.totals.items())}),
                  json.dumps(sims), json.dumps(counts), len(cat), found,
                  len(truth["y_c"]), card))
         if found < len(truth["y_c"]) // 2:
@@ -2390,7 +2390,7 @@ def contamination_phase(noise, detect, card, runs, device="cuda"):
     the dataMap run's filter caches."""
     import torch
     from nemo_tpu_torch import maps, startup
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    from nemo_tpu_torch.utils.timing import RECORDER
 
     onCard = device == "cuda"
     realCat = runs["dataMap"]["catalog"]
@@ -2413,7 +2413,7 @@ def contamination_phase(noise, detect, card, runs, device="cuda"):
             return cat
         return run
     from nemo_tpu_torch import pipelines
-    GLOBAL_TIMER.__init__()
+    RECORDER.reset()
     reset_counts(noise, detect)
     reset_sim_counts()
     t0 = time.perf_counter()
@@ -2788,8 +2788,8 @@ def realspace_phase(noise, detect, card, surveyDict, truth, device="cuda"):
                  100 * bud["kernelBuild"] / bud["staging"], len(cat),
                  json.dumps(counts), card))
     cat, secs, bud, counts = runs["warm"]
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
-    stages = dict(GLOBAL_TIMER.stages)
+    from nemo_tpu_torch.utils.timing import RECORDER
+    stages = dict(RECORDER.totals)
     diff = same_catalog(runs["cold"][0], cat)
     if diff != 0.0:
         raise RuntimeError("two real-space card runs differ by %.3e" % diff)
@@ -3355,14 +3355,14 @@ def profile_phase(noise, detect, card, surveyDict, device="cuda"):
     from nemo_tpu_torch.cli import nemo_main
     from nemo_tpu_torch.parallel import engine
     from nemo_tpu_torch.utils.tables import Table
-    from nemo_tpu_torch.utils.timing import GLOBAL_TIMER
+    from nemo_tpu_torch.utils.timing import RECORDER
     out = {}
     for tag, extra in (("plain", []), ("profiled", ["--profile"])):
         cfgPath = tools_config(surveyDict, "profile_" + tag,
                                deviceBatchSize=PROFILE_BATCH)
         engine.PROFILE_CHUNK_DIR = None
         engine._chunkCounter[0] = 0
-        GLOBAL_TIMER.__init__()
+        RECORDER.reset()
         reset_counts(noise, detect)
         t0 = time.perf_counter()
         try:

@@ -3,7 +3,8 @@
 
 Same flags and output layout as ``nemo_tpu.cli.nemo_main``, plus
 ``--device``; ``--profile`` traces one warm chunk of the batched engine
-into ``diagnostics/profile/trace.json``.  Runs the filter and catalog
+into ``diagnostics/profile/trace.json``, with the program's host spans of
+that chunk beside it in ``spans.json`` (:mod:`..utils.timing`).  Runs the filter and catalog
 stage (per tile, or batched over tiles with ``useDeviceBatching: true``),
 then the epilogue as the JAX CLI does: the Q fit (``fitQ``), the RMS
 tables, the fRel weights and the fused selection-function products, the
@@ -24,7 +25,8 @@ import sys
 
 from nemo_tpu_torch import catalogs, completeness, maps, pipelines, startup
 from nemo_tpu_torch.models import qfit
-from nemo_tpu_torch.utils.timing import GLOBAL_TIMER, profile_trace
+from nemo_tpu_torch.utils import timing
+from nemo_tpu_torch.utils.timing import profile_trace
 
 
 def makeParser():
@@ -63,13 +65,19 @@ def makeParser():
                              "CUDA device is present).")
     parser.add_argument("--profile-dir", dest="profileDir", default=None,
                         help="Capture a torch.profiler trace of the "
-                             "filtering stage into this directory.")
+                             "filtering stage into this directory "
+                             "(trace.json, and the program's host spans "
+                             "on the same clock in spans.json).")
     parser.add_argument("--profile", dest="profileChunk",
                         action="store_true", default=False,
                         help="Capture ONE warm tile-chunk's device trace "
-                             "into diagnostics/profile/ (per-chunk "
-                             "budgets land in diagnostics/"
-                             "chunk_budgets.jsonl regardless).")
+                             "into diagnostics/profile/trace.json, and "
+                             "the program's host spans of that chunk "
+                             "(staging worker, steps, emission, writer) "
+                             "beside it in spans.json, on the trace's "
+                             "clock (per-chunk budgets land in "
+                             "diagnostics/chunk_budgets.jsonl "
+                             "regardless).")
     return parser
 
 
@@ -120,10 +128,10 @@ def main(argv=None):
 
     if config.parDict.get("photFilter") and config.parDict.get("fitQ"):
         if not os.path.exists(os.path.join(config.selFnDir, "QFit.fits")):
-            with GLOBAL_TIMER.stage("fitQ"):
+            with timing.span("fitQ"):
                 qfit.fitQ(config)
 
-    with GLOBAL_TIMER.stage("makeRMSTables"):
+    with timing.span("makeRMSTables"):
         pipelines.makeRMSTables(config)
 
     sourceInjTable = None
@@ -131,7 +139,7 @@ def main(argv=None):
                                  "sourceInjectionData.fits")
     if not os.path.exists(sourceInjPath):
         if config.parDict.get("sourceInjectionTest"):
-            with GLOBAL_TIMER.stage("sourceInjectionTest"):
+            with timing.span("sourceInjectionTest"):
                 sourceInjTable = maps.sourceInjectionTest(config)
     else:
         print("... already made source injection data %s" % sourceInjPath)
@@ -153,13 +161,13 @@ def main(argv=None):
             selFnDir=config.selFnDir)
 
     if config.parDict.get("stitchTiles") and len(config.tileNames) > 1:
-        with GLOBAL_TIMER.stage("stitchTiles"):
+        with timing.span("stitchTiles"):
             maps.stitchTiles(config)
     if config.parDict.get("makeQuickLookMaps"):
-        with GLOBAL_TIMER.stage("makeQuickLookMaps"):
+        with timing.span("makeQuickLookMaps"):
             maps.makeQuickLookMaps(config)
 
-    with GLOBAL_TIMER.stage("tidyUp"):
+    with timing.span("tidyUp"):
         completeness.getFRelWeights(config)
         completeness.tidyUp(config)
 
@@ -167,16 +175,16 @@ def main(argv=None):
         selFnConfigPath = os.path.join(config.selFnDir, "config.yml")
         if not os.path.exists(selFnConfigPath):
             shutil.copy(args.configFileName, selFnConfigPath)
-        with GLOBAL_TIMER.stage("completeness"):
+        with timing.span("completeness"):
             completeness.completenessByFootprint(config)
             selFnOptions = config.parDict.get("selFnOptions", {})
             if selFnOptions.get("massLimitMaps"):
                 completeness.makeMassLimitMapsAndPlots(config)
 
-    print(GLOBAL_TIMER.report())
+    print(timing.RECORDER.report())
     with open(os.path.join(config.diagnosticsDir, "timings.json"),
               "w") as f:
-        f.write(GLOBAL_TIMER.to_json() + "\n")
+        f.write(timing.RECORDER.to_json() + "\n")
 
 
 def writeOptimalCatalog(optimalCatalog, optimalCatalogFileName):

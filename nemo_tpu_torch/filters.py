@@ -41,7 +41,7 @@ from .ops import fourier, grf, imageops, interp, sht
 from .ops import noise as noise_ops
 from .ops import solve as solve_ops
 from .utils import fits as nfits
-from .utils.timing import GLOBAL_TIMER
+from .utils import timing
 
 
 # ----------------------------------------------------------------------------
@@ -122,7 +122,7 @@ class MapFilter:
                 if geometry is None:
                     geometryOnly = False
             if hasattr(newDict, "preprocess") and not geometryOnly:
-                with GLOBAL_TIMER.stage("preprocess"):
+                with timing.span("preprocess"):
                     newDict.preprocess(tileName=tileName,
                                        diagnosticsDir=diagnosticsDir)
             self.unfilteredMapsDictList.append(newDict)
@@ -580,7 +580,7 @@ class MatchedFilter(MapFilter):
             self.params["saveFilter"] = False
             self.params["savePlots"] = False
         else:
-            with GLOBAL_TIMER.stage("buildFilter"):
+            with timing.span("buildFilter"):
                 self._buildFilter(dataStack, apodM)
 
         if params["outputUnits"] == "yc":
@@ -602,7 +602,7 @@ class MatchedFilter(MapFilter):
                     and noiseParams.get("numNoiseBins", 1) <= 1
                     and not params.get("bckSub"))
         if onDevice:
-            with GLOBAL_TIMER.stage("applyFilter+noise"):
+            with timing.span("applyFilter+noise"):
                 filteredDev = self.applyFilter(fMapsToFilter,
                                                returnDevice=True)
                 gridSize = None if grid is None else int(round(
@@ -1108,7 +1108,7 @@ class RealSpaceMatchedFilter(MapFilter):
         surveyMask = np.asarray(self.unfilteredMapsDictList[0]["surveyMask"])
         psMask = np.asarray(self.unfilteredMapsDictList[0]["pointSourceMask"])
 
-        with GLOBAL_TIMER.stage("buildKernel"):
+        with timing.span("buildKernel"):
             self.buildKernel(self._resolveRADecSection())
 
         dataStack = np.stack([np.asarray(m["data"], dtype=np.float64)

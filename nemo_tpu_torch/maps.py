@@ -29,6 +29,7 @@ from .models import profiles, sz
 from .models.beams import BeamProfile
 from .ops import fourier, grf, imageops, sht
 from .utils import fits as nfits
+from .utils import timing
 from .utils.tables import Table, vstack
 from .utils.wcs import WCS, calcAngSepDeg, clipUsingRADecCoords
 
@@ -202,6 +203,8 @@ class MapDict(dict):
                 data = full[0] if full.ndim == 3 else full
                 wcs = WCS(header)
         data = np.array(data)
+        timing.count("stage.map_reads")
+        timing.count("stage.map_read_bytes", data.nbytes)
         if data.dtype.byteorder == ">":
             data = data.astype(data.dtype.newbyteorder("="))
 

@@ -11,6 +11,7 @@ uses curved-sky Legendre transforms via pixell; the difference is O(theta^2)
 import numpy as np
 
 from ..ops.hankel import RadialFourierTransform
+from ..utils import timing
 
 
 class BeamProfile:
@@ -30,6 +31,7 @@ class BeamProfile:
         self.solidAngle_nsr = 0.0
         if beamFileName is not None:
             self.solidAngle_nsr = _parse_solid_angle(beamFileName)
+            timing.count("stage.beam_reads")
             beamData = np.loadtxt(beamFileName).transpose()
             if beamData[0][1] - beamData[0][0] >= 1:
                 # (ell, B_ell) transform file

@@ -45,6 +45,7 @@ Fourier route's chunk of index :data:`_PROFILE_CHUNK_INDEX` (the first
 warm one) then runs under a torch.profiler trace written there.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -59,7 +60,8 @@ from ..models import sz
 from ..ops import fourier
 from ..ops import noise as noise_ops
 from ..ops import paint as paint_ops
-from ..utils.timing import GLOBAL_TIMER, profile_trace
+from ..utils import timing
+from ..utils.timing import profile_trace
 from . import filtercache
 from .distribute import (make_sharded_matched_filter_step,
                          make_sharded_realspace_step, subpixel_read_batch)
@@ -125,9 +127,11 @@ def _preprocessTileOnce(config, tileName, diagnosticsDir=None):
         newDict = mapDict.copy() if hasattr(mapDict, "copy") \
             else dict(mapDict)
         if hasattr(newDict, "preprocess"):
-            newDict.preprocess(tileName=tileName,
-                               diagnosticsDir=diagnosticsDir
-                               or config.diagnosticsDir)
+            with timing.span("stage.preprocess",
+                             band=newDict.get("obsFreqGHz")):
+                newDict.preprocess(tileName=tileName,
+                                   diagnosticsDir=diagnosticsDir
+                                   or config.diagnosticsDir)
         out.append(newDict)
     return out
 
@@ -247,9 +251,11 @@ def _bankTemplateStacks(cache, filterObj, bank, label):
                      for m in mapsList))
     bankKey = ("bank", geomKey, tuple(f["label"] for f in bank))
     if bankKey in cache:
+        timing.count("stage.template_cache_hits")
         ent = cache.pop(bankKey)
         cache[bankKey] = ent            # LRU touch
         return ent[label]
+    timing.count("stage.template_cache_misses")
     y0 = 2e-4
     tables, scales = [], []
     for f in bank:
@@ -354,12 +360,15 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
     saved filter and its SIGNORM are staged too (``cachedFilt``,
     ``cachedNorm``; None where no cache of the right shape exists)."""
     filterClass = filters_mod.getFilterClass(f["class"])
-    filterObj = filterClass(f["label"],
-                            mapsList or config.unfilteredMapsDictList,
-                            f["params"], tileName=tileName,
-                            diagnosticsDir=diagnosticsDir
-                            or config.diagnosticsDir,
-                            selFnDir=config.selFnDir, policy=config.policy)
+    with timing.span("stage.filter_object"):
+        filterObj = filterClass(f["label"],
+                                mapsList or config.unfilteredMapsDictList,
+                                f["params"], tileName=tileName,
+                                diagnosticsDir=diagnosticsDir
+                                or config.diagnosticsDir,
+                                selFnDir=config.selFnDir,
+                                policy=config.policy)
+    timing.count("stage.filter_objects")
     params = filterObj.params
     if common is None or params.get("mapToUse"):
         common = _stage_tile_common(filterObj)
@@ -381,8 +390,10 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
     noiseStack = filterObj._noiseStack(dataStack) if method == "model" \
         else dataStack
     # max(dataMap,CMB): the lensed CMB power floors the covariance
-    fgPower = filterObj._foregroundsPower() \
-        if method == "max(dataMap,CMB)" else None
+    fgPower = None
+    if method == "max(dataMap,CMB)":
+        with timing.span("stage.fg_power"):
+            fgPower = filterObj._foregroundsPower()
 
     # stacked templates are cached so same-geometry tiles share one
     # tensor (the chunk upload deduplicates by identity)
@@ -396,42 +407,50 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
         if templateCache is None:
             return build()
         if key not in templateCache:
+            timing.count("stage.template_cache_misses")
             templateCache[key] = build()
             _trimCache(templateCache)
+        else:
+            timing.count("stage.template_cache_hits")
         return templateCache[key]
 
     y0 = 2e-4
     useBank = bank is not None and templateCache is not None \
         and not params.get("mapToUse") and _bankPaintOn(config)
-    if useBank:
-        templates, calibStack = _bankTemplateStacks(
-            templateCache, filterObj, bank, f["label"])
-    else:
-        templates = _cachedStack(
-            ("stack",) + geomKey,
-            lambda: torch.stack([_template(m["beamFileName"])
-                                 for m in filterObj.unfilteredMapsDictList]))
-        if params["outputUnits"] == "yc":
-            def _buildCalib():
-                calib = []
-                for m in filterObj.unfilteredMapsDictList:
-                    amplitude = y0 if m.get("units") == "yc" \
-                        else sz.convertToDeltaT(y0, m["obsFreqGHz"])
-                    calib.append(fourier.apply_pixel_window(
-                        _template(m["beamFileName"], amplitude=amplitude),
-                        pow=1.0))
-                return torch.stack(calib)
 
-            unitsKey = tuple((m.get("units"), m.get("obsFreqGHz"))
-                             for m in filterObj.unfilteredMapsDictList)
-            calibStack = _cachedStack(("calib", unitsKey) + geomKey,
-                                      _buildCalib)
+    with timing.span("stage.templates"):
+        if useBank:
+            templates, calibStack = _bankTemplateStacks(
+                templateCache, filterObj, bank, f["label"])
         else:
-            calibStack = templates
+            templates = _cachedStack(
+                ("stack",) + geomKey,
+                lambda: torch.stack([
+                    _template(m["beamFileName"])
+                    for m in filterObj.unfilteredMapsDictList]))
+            if params["outputUnits"] == "yc":
+                def _buildCalib():
+                    calib = []
+                    for m in filterObj.unfilteredMapsDictList:
+                        amplitude = y0 if m.get("units") == "yc" \
+                            else sz.convertToDeltaT(y0, m["obsFreqGHz"])
+                        calib.append(fourier.apply_pixel_window(
+                            _template(m["beamFileName"],
+                                      amplitude=amplitude), pow=1.0))
+                    return torch.stack(calib)
+
+                unitsKey = tuple((m.get("units"), m.get("obsFreqGHz"))
+                                 for m in filterObj.unfilteredMapsDictList)
+                calibStack = _cachedStack(("calib", unitsKey) + geomKey,
+                                          _buildCalib)
+            else:
+                calibStack = templates
     unitsScale = y0 if params["outputUnits"] == "yc" else 1.0
     w = filters_mod._freq_weights(filterObj.unfilteredMapsDictList, params)
-    cachedFilt, cachedNorm = _cachedFilter(filterObj) if useCachedFilter \
-        else (None, None)
+    cachedFilt, cachedNorm = None, None
+    if useCachedFilter:
+        with timing.span("stage.cached_filter"):
+            cachedFilt, cachedNorm = _cachedFilter(filterObj)
 
     gridSize = int(round(
         (params["noiseParams"]["noiseGridArcmin"] / 60.0)
@@ -478,7 +497,7 @@ def _prepare_tile_realspace(config, f, tileName, mapsList=None,
                             selFnDir=config.selFnDir, policy=config.policy)
     params = filterObj.params
     tKernel = time.time()
-    with GLOBAL_TIMER.stage("buildKernel"):
+    with timing.span("buildKernel"):
         filterObj.buildKernel(filterObj._resolveRADecSection())
     tKernel = time.time() - tKernel
 
@@ -645,7 +664,7 @@ def batchFilterTilesMulti(config, fList, tileNames=None, mesh=None,
                                         if lb != photLabel]
             ctx = _stage_bucket_uploads(staged, labels, list(sub),
                                         padShape, config.policy, gridSize,
-                                        mesh)
+                                        mesh, run["chunk"])
             for label in labels:
                 for n in sub:
                     staged[label].pop(n, None)
@@ -667,25 +686,36 @@ def batchFilterTilesMulti(config, fList, tileNames=None, mesh=None,
                               diagnosticsDir=diagnosticsDir,
                               stageWait=_filedWait())
 
-    def _stageTileWorker(tileName):
-        mapsList = _preprocessTileOnce(config, tileName, diagnosticsDir)
-        common = _stage_tile_common_from_maps(mapsList) if mfList else None
-        return [(f,) + (_prepare_tile_realspace(
+    def _stageFilter(f, tileName, mapsList, common):
+        with timing.span("stage.filter", tile=tileName, label=f["label"]):
+            if f["class"] in _REALSPACE_CLASSES:
+                return _prepare_tile_realspace(
                     config, f, tileName, mapsList=mapsList,
                     diagnosticsDir=diagnosticsDir)
-                    if f["class"] in _REALSPACE_CLASSES else _prepare_tile(
-                    config, f, tileName, templateCache=templateCache,
-                    mapsList=mapsList, common=common,
-                    diagnosticsDir=diagnosticsDir, bank=mfBank,
-                    useCachedFilter=useCachedFilters))
-                for f in fList]
+            return _prepare_tile(
+                config, f, tileName, templateCache=templateCache,
+                mapsList=mapsList, common=common,
+                diagnosticsDir=diagnosticsDir, bank=mfBank,
+                useCachedFilter=useCachedFilters)
+
+    def _stageTileWorker(tileName):
+        with timing.span("stage.tile", tile=tileName):
+            timing.count("stage.tiles")
+            mapsList = _preprocessTileOnce(config, tileName, diagnosticsDir)
+            common = None
+            if mfList:
+                with timing.span("stage.common"):
+                    common = _stage_tile_common_from_maps(mapsList)
+            return [(f,) + _stageFilter(f, tileName, mapsList, common)
+                    for f in fList]
 
     # One staging worker with a bounded look-ahead: tiles are staged in
     # survey order (template-cache order preserved) while the main thread
     # runs the device chunks.
     lookahead = max(2, min(deviceBatchSize, 16))
     prefetched = {}
-    with ThreadPoolExecutor(max_workers=1) as prefetcher:
+    with ThreadPoolExecutor(max_workers=1,
+                            thread_name_prefix="stage") as prefetcher:
 
         def _submitPrefetch(i):
             if 0 <= i < len(tileNames) and i not in prefetched:
@@ -696,10 +726,11 @@ def batchFilterTilesMulti(config, fList, tileNames=None, mesh=None,
             for i in range(min(lookahead, len(tileNames))):
                 _submitPrefetch(i)
             for tileIdx, tileName in enumerate(tileNames):
-                t0 = time.time()
-                entries = prefetched.pop(tileIdx).result()
-                _submitPrefetch(tileIdx + lookahead)
-                run["stageWait"] += time.time() - t0
+                # filed into the budget of the next chunk to run
+                with timing.span("loop.stage_wait", into=(run, "stageWait"),
+                                 tile=tileName, chunk=run["chunk"]):
+                    entries = prefetched.pop(tileIdx).result()
+                    _submitPrefetch(tileIdx + lookahead)
                 for f, filterObj, stacks in entries:
                     staged[f["label"]][tileName] = (filterObj, stacks)
                     if f["class"] in _REALSPACE_CLASSES:
@@ -737,7 +768,8 @@ def batchFilterTilesMulti(config, fList, tileNames=None, mesh=None,
             _flush(key, bucket)
     # the cache FITS queued on the background writer are on disk when the
     # run returns (the photometry filter's deferred ones: on demand)
-    filtercache.WRITER.flush()
+    with timing.span("loop.writer_flush"):
+        filtercache.WRITER.flush()
     if verbose:
         print("    [batch total %.1fs; staging-worker wait %.1fs]"
               % (time.time() - run["t0"], run["stageWait"]), flush=True)
@@ -789,13 +821,13 @@ def _writeRMSMap(config, filterObj, tileName, RMSMap):
 def _download(t, tPhase):
     """Device -> host copy of a small result, timed as download; a batch
     given as per-shard tensors comes back as one array in tile order."""
-    t0 = time.time()
-    if isinstance(t, list):
-        a = np.concatenate([x.cpu().numpy() for x in t])
-    else:
-        a = t.cpu().numpy()
-    tPhase["download"] += time.time() - t0
+    with timing.span("emit.download", into=(tPhase, "download")):
+        if isinstance(t, list):
+            a = np.concatenate([x.cpu().numpy() for x in t])
+        else:
+            a = t.cpu().numpy()
     tPhase["downBytes"] += a.nbytes
+    timing.count("emit.download_bytes", a.nbytes)
     return a
 
 
@@ -852,7 +884,7 @@ def _calibNormsFromCrops(crops, stepNorms, st, names, padShape):
     return norms, fRelW
 
 
-def _saveFilterCaches(st, names, filt, tPhase, hostNorms, fRelW,
+def _saveFilterCaches(st, names, filt, hostNorms, fRelW,
                       deviceCache=False):
     """Save each tile's built filter in the host engine's ``saveFilter``
     format ((nf, PY, PX//2+1) float64, SIGNORM + RW* headers) from the
@@ -866,7 +898,6 @@ def _saveFilterCaches(st, names, filt, tPhase, hostNorms, fRelW,
     background writer."""
     from ..utils import fits as nfits
 
-    t0 = time.time()
     for i, tileName in enumerate(names):
         filterObj, stacks = st[tileName]
         header = nfits.Header()
@@ -888,7 +919,6 @@ def _saveFilterCaches(st, names, filt, tPhase, hostNorms, fRelW,
         else:
             filtercache.WRITER.enqueue(filterObj.filterFileName, filtDev,
                                        header)
-    tPhase["download"] += time.time() - t0
 
 
 def _emit_overflow_fallback(config, out, i, filterObj, tileName, shape,
@@ -1019,33 +1049,47 @@ def _consume_detect_results(config, st, names, out, gridSize, trimPix,
                 # the phot filter reads fixed_ values from its own maps
                 res["photSubVals"] = subVals
             if saveRMS:
-                nCyT = noise_ops.n_cells(shape[0], gridSize)
-                nCxT = noise_ops.n_cells(shape[1], gridSize)
-                rms = noise_ops.assemble_rms_host(
-                    cells[i][:nCyT, :nCxT], shape[0], shape[1], gridSize) \
-                    * tileMask * scale
-                _writeRMSMap(config, filterObj, tileName, rms)
+                with timing.span("emit.rms_map", tile=tileName):
+                    nCyT = noise_ops.n_cells(shape[0], gridSize)
+                    nCxT = noise_ops.n_cells(shape[1], gridSize)
+                    rms = noise_ops.assemble_rms_host(
+                        cells[i][:nCyT, :nCxT], shape[0], shape[1],
+                        gridSize) * tileMask * scale
+                    _writeRMSMap(config, filterObj, tileName, rms)
         _deliver(label, tileName, res, results, consume, tPhase)
 
 
 def _deliver(label, tileName, res, results, consume, tPhase):
     results[label][tileName] = res
     if consume is not None:
-        t0 = time.time()
-        if consume(label, tileName, res):
-            results[label].pop(tileName, None)
-        tPhase["consume"] += time.time() - t0
+        with timing.span("emit.catalog", into=(tPhase, "consume"),
+                         tile=tileName, label=label):
+            if consume(label, tileName, res):
+                results[label].pop(tileName, None)
+
+
+def _upload(a, dev, dtype=None):
+    """``torch.as_tensor(a, dtype=dtype, device=dev)``, counting the bytes
+    a host array sends to a card (``chunk.upload_bytes.pageable``, or
+    ``.pinned`` from pinned memory)."""
+    t = torch.as_tensor(a, dtype=dtype, device=dev)
+    onHost = not isinstance(a, torch.Tensor) or a.device.type == "cpu"
+    if t.device.type != "cpu" and onHost:
+        pinned = isinstance(a, torch.Tensor) and a.is_pinned()
+        timing.count("chunk.upload_bytes.pinned" if pinned
+                     else "chunk.upload_bytes.pageable", t.nbytes)
+    return t
 
 
 def _stage_bucket_uploads(staged, labels, names, padShape, policy,
-                          gridSize, mesh):
+                          gridSize, mesh, chunkIdx):
     """Snapshot one tile chunk's staged state and upload its big
     label-independent arrays (data, apodisation, masks), each shard's
     tiles to that shard's device (:func:`.mesh.tile_sharding`), cast once
     to the policy dtype (staging stays float64).  Every uploaded input is
     a list of per-shard tensors; ``putDedup`` uploads a label's stacks
-    the same way."""
-    t0 = time.time()
+    the same way.  Timed as the ``chunk.upload`` span of chunk
+    ``chunkIdx`` (``stageUpload``)."""
     P = policy
     shards = tile_sharding(mesh).slices(len(names))
 
@@ -1054,8 +1098,8 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
                 for dev, sl in shards]
 
     def _put1(dev, arrs):
-        return torch.as_tensor(np.stack([_pad2(a, padShape) for a in arrs]),
-                               dtype=P.dtype, device=dev)
+        return _upload(np.stack([_pad2(a, padShape) for a in arrs]), dev,
+                       P.dtype)
 
     def _putDedup1(dev, arrs):
         """Upload only the distinct arrays of a shard's stacked input (by
@@ -1075,8 +1119,7 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
             uniqDev = _put1(dev, uniq)
         else:
             uniqDev = torch.stack([fourier.pad_to(
-                torch.as_tensor(a, dtype=P.dtype, device=dev), padShape)
-                for a in uniq])
+                _upload(a, dev, P.dtype), padShape) for a in uniq])
         return uniqDev[torch.as_tensor(idx, device=dev)]
 
     def _putMask1(dev, arrs, shapes):
@@ -1086,8 +1129,8 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
         arrs = [_asBinaryMask(a) for a in arrs]
         if not all(a.dtype == np.uint8 and a.min() == 1 for a in arrs):
             if all(a.dtype == np.uint8 for a in arrs):
-                return torch.as_tensor(np.stack(
-                    [_pad2(a, padShape) for a in arrs]), device=dev)
+                return _upload(np.stack([_pad2(a, padShape) for a in arrs]),
+                               dev)
             return _put1(dev, arrs)
         sy = torch.as_tensor([s[0] for s in shapes], device=dev)
         sx = torch.as_tensor([s[1] for s in shapes], device=dev)
@@ -1102,18 +1145,20 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
     shapes = [c["shape"] for c in common]
     ctx = {"labels": labels, "names": names, "padShape": padShape,
            "snapshot": snapshot, "nT": len(names), "shards": shards,
-           "putDedup": lambda arrs: _sharded(_putDedup1, arrs),
-           "dataDev": _sharded(_put1, [c["data"] for c in common]),
-           "apodDev": _sharded(_putDedup1, [c["apodM"] for c in common]),
-           "psDev": _sharded(_putMask1, [c["psMask"] for c in common],
-                             shapes),
-           "surveyDev": _sharded(_putMask1,
-                                 [c["surveyMask"] for c in common], shapes),
-           "peakDev": _sharded(lambda dev, sh: torch.as_tensor(
-               [[s[0] // 2, s[1] // 2] for s in sh], device=dev), shapes),
-           # per-tile true-shape noise-cell geometry (host int tables)
-           "meta": noise_ops.cell_meta_batch(shapes, padShape, gridSize)}
-    ctx["stageUpload"] = time.time() - t0
+           "putDedup": lambda arrs: _sharded(_putDedup1, arrs)}
+    with timing.span("chunk.upload", into=(ctx, "stageUpload"),
+                     chunk=chunkIdx):
+        ctx.update(
+            dataDev=_sharded(_put1, [c["data"] for c in common]),
+            apodDev=_sharded(_putDedup1, [c["apodM"] for c in common]),
+            psDev=_sharded(_putMask1, [c["psMask"] for c in common],
+                           shapes),
+            surveyDev=_sharded(_putMask1, [c["surveyMask"] for c in common],
+                               shapes),
+            peakDev=_sharded(lambda dev, sh: torch.as_tensor(
+                [[s[0] // 2, s[1] // 2] for s in sh], device=dev), shapes),
+            # per-tile true-shape noise-cell geometry (host int tables)
+            meta=noise_ops.cell_meta_batch(shapes, padShape, gridSize))
     return ctx
 
 
@@ -1163,15 +1208,16 @@ _chunkCounter = [0]
 
 
 def _process_bucket_shared(*args, **kwargs):
-    """:func:`_process_bucket`, traced into :data:`PROFILE_CHUNK_DIR` when
-    it is set and this is the process's chunk of index
-    :data:`_PROFILE_CHUNK_INDEX`."""
+    """:func:`_process_bucket` in the ``chunk`` span of its ``chunkIdx``,
+    traced into :data:`PROFILE_CHUNK_DIR` when it is set and this is the
+    process's chunk of index :data:`_PROFILE_CHUNK_INDEX`."""
     idx = _chunkCounter[0]
     _chunkCounter[0] += 1
-    if PROFILE_CHUNK_DIR and idx == _PROFILE_CHUNK_INDEX:
-        with profile_trace(PROFILE_CHUNK_DIR):
+    traced = PROFILE_CHUNK_DIR and idx == _PROFILE_CHUNK_INDEX
+    with profile_trace(PROFILE_CHUNK_DIR) if traced \
+            else contextlib.nullcontext():
+        with timing.span("chunk", chunk=kwargs["chunkIdx"]):
             return _process_bucket(*args, **kwargs)
-    return _process_bucket(*args, **kwargs)
 
 
 def _process_bucket(config, ctx, gridSize, trimPix, mesh,
@@ -1191,6 +1237,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
     overflowed to host detection; each shard's tile count (``shards``)
     and its steps' device seconds (``shardStep``)."""
     tChunk0 = time.time()
+    t0Ns = time.perf_counter_ns()
     cpu0 = time.process_time()
     labels = ctx["labels"]
     names = ctx["names"]
@@ -1227,73 +1274,80 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
             mesh, gridSize, trimPix, lean_outputs=not useDetect,
             detect_params=detectParams if useDetect else None,
             return_filter=wantFilter, given_filter=given)
-        t0 = time.time()
-        if given:
-            # a device-cached filter moves to its shard's device
-            out = step(dataDev, [torch.stack([
-                torch.as_tensor(sk["cachedFilt"], dtype=P.dtype, device=dev)
-                for sk in stacksList[sl]]) for dev, sl in shards],
-                ctx["apodDev"], ctx["psDev"], ctx["surveyDev"], ctx["meta"])
-        else:
-            noiseDev = dataDev if all(sk["noise"] is sk["data"]
-                                      for sk in stacksList) \
-                else ctx["putDedup"]([sk["noise"] for sk in stacksList])
-            # -inf, not 0: the step's max(prods, fg) must be a no-op but
-            # for max(dataMap,CMB) (about half the cross-band covariance
-            # is negative)
-            fgDev = []
-            for dev, sl in shards:
-                fg = torch.full((sl.stop - sl.start,) + halfShape,
-                                float("-inf"), dtype=P.dtype, device=dev)
-                for j, sk in enumerate(stacksList[sl]):
-                    if sk["fgPower"] is not None:
-                        fg[j] = torch.as_tensor(sk["fgPower"], dtype=P.dtype,
-                                                device=dev)
-                fgDev.append(fg)
-            out = step(dataDev, noiseDev,
-                       ctx["putDedup"]([sk["template"]
-                                        for sk in stacksList]),
-                       ctx["putDedup"]([sk["calib"] for sk in stacksList]),
-                       P.tensor(stacksList[0]["w"]), ctx["apodDev"],
-                       ctx["psDev"], ctx["surveyDev"], fgDev,
-                       ctx["peakDev"], ctx["meta"])
-        _sync(devs)
-        tPhase["step"] += time.time() - t0
+        with timing.span("chunk.step", into=(tPhase, "step"), label=label):
+            if given:
+                # a device-cached filter moves to its shard's device
+                out = step(dataDev, [torch.stack([
+                    _upload(sk["cachedFilt"], dev, P.dtype)
+                    for sk in stacksList[sl]]) for dev, sl in shards],
+                    ctx["apodDev"], ctx["psDev"], ctx["surveyDev"],
+                    ctx["meta"])
+            else:
+                noiseDev = dataDev if all(sk["noise"] is sk["data"]
+                                          for sk in stacksList) \
+                    else ctx["putDedup"]([sk["noise"] for sk in stacksList])
+                # -inf, not 0: the step's max(prods, fg) must be a no-op
+                # but for max(dataMap,CMB) (about half the cross-band
+                # covariance is negative)
+                fgDev = []
+                for dev, sl in shards:
+                    fg = torch.full((sl.stop - sl.start,) + halfShape,
+                                    float("-inf"), dtype=P.dtype, device=dev)
+                    for j, sk in enumerate(stacksList[sl]):
+                        if sk["fgPower"] is not None:
+                            fg[j] = _upload(sk["fgPower"], dev, P.dtype)
+                    fgDev.append(fg)
+                out = step(dataDev, noiseDev,
+                           ctx["putDedup"]([sk["template"]
+                                            for sk in stacksList]),
+                           ctx["putDedup"]([sk["calib"]
+                                            for sk in stacksList]),
+                           P.tensor(stacksList[0]["w"]), ctx["apodDev"],
+                           ctx["psDev"], ctx["surveyDev"], fgDev,
+                           ctx["peakDev"], ctx["meta"])
+            _sync(devs)
         for k, timer in enumerate(out.pop("stepTimer")):
             tPhase["shardStep"][k] += timer.seconds()
 
-        tEmit, down0, cons0 = time.time(), tPhase["download"], \
-            tPhase["consume"]
-        if given:
-            # host convention: the cached SIGNORM includes the units scale
-            hostNorms = np.array([sk["cachedNorm"] / sk["unitsScale"]
-                                  for sk in stacksList])
-            tPhase["givenLabels"] += 1
-        else:
-            hostNorms, fRelW = _calibNormsFromCrops(
-                _download(out["calibCrop"], tPhase),
-                _download(out["signalNorm"], tPhase), st, names, padShape)
-        if wantFilter:
-            _saveFilterCaches(st, names, out["filt"], tPhase, hostNorms,
-                              fRelW, deviceCache=(label == photLabel))
-        if useDetect:
-            tPhase["detectLabels"] += 1
-            _consume_detect_results(
-                config, st, names, out, gridSize, trimPix, detectParams,
-                label, photLabel, photRes, seenTiles, tPhase, results,
-                consume, hostNorms, saveRMS)
-            if label == photLabel:
-                photRes = {"SNMap": out["SNMap"],
-                           "filtered": out["filtered"],
-                           "scale": stacksList[0]["unitsScale"] * hostNorms}
-        else:
-            _finish_label_lean(config, st, names, out, gridSize, label,
-                               tPhase, results, consume, hostNorms, saveRMS,
-                               undoPixelWindow)
-        # calibration reads and FITS writes: host time that is neither a
-        # download nor the catalog stage
-        tPhase["hostOther"] += time.time() - tEmit \
-            - (tPhase["download"] - down0) - (tPhase["consume"] - cons0)
+        # the emission's calibration reads and FITS writes are host time
+        # that is neither a download nor the catalog stage: hostOther
+        down0, cons0 = tPhase["download"], tPhase["consume"]
+        with timing.span("chunk.emit", into=(tPhase, "hostOther"),
+                         label=label):
+            if given:
+                # host convention: the cached SIGNORM includes the units
+                # scale
+                hostNorms = np.array([sk["cachedNorm"] / sk["unitsScale"]
+                                      for sk in stacksList])
+                tPhase["givenLabels"] += 1
+            else:
+                crops = _download(out["calibCrop"], tPhase)
+                stepNorms = _download(out["signalNorm"], tPhase)
+                with timing.span("emit.calib"):
+                    hostNorms, fRelW = _calibNormsFromCrops(
+                        crops, stepNorms, st, names, padShape)
+            if wantFilter:
+                with timing.span("emit.filter_cache"):
+                    _saveFilterCaches(st, names, out["filt"], hostNorms,
+                                      fRelW,
+                                      deviceCache=(label == photLabel))
+            if useDetect:
+                tPhase["detectLabels"] += 1
+                _consume_detect_results(
+                    config, st, names, out, gridSize, trimPix, detectParams,
+                    label, photLabel, photRes, seenTiles, tPhase, results,
+                    consume, hostNorms, saveRMS)
+                if label == photLabel:
+                    photRes = {"SNMap": out["SNMap"],
+                               "filtered": out["filtered"],
+                               "scale": stacksList[0]["unitsScale"]
+                               * hostNorms}
+            else:
+                _finish_label_lean(config, st, names, out, gridSize, label,
+                                   tPhase, results, consume, hostNorms,
+                                   saveRMS, undoPixelWindow)
+        tPhase["hostOther"] -= (tPhase["download"] - down0) \
+            + (tPhase["consume"] - cons0)
         del out
     if verbose:
         print("    [chunk: upload %.2fs, steps %.2fs, download %.2fs "
@@ -1304,7 +1358,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
                  tPhase["hostOther"], tPhase["detectLabels"], len(labels),
                  tPhase["overflowTiles"]), flush=True)
     _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, len(names),
-                  len(labels), padShape, devs, tChunk0, cpu0)
+                  len(labels), padShape, devs, tChunk0, cpu0, t0Ns)
 
 
 def _new_budget(stageWait, upload):
@@ -1315,9 +1369,11 @@ def _new_budget(stageWait, upload):
 
 
 def _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, nTiles,
-                  nLabels, padShape, devs, tChunk0, cpu0):
+                  nLabels, padShape, devs, tChunk0, cpu0, t0Ns):
     """Append one chunk's budget to ``diagnostics/chunk_budgets.jsonl``;
-    ``device`` names the shards' distinct devices."""
+    ``device`` names the shards' distinct devices, ``pass`` the
+    recorder's pass number; ``t_wall`` and ``wall_s`` are on
+    ``time.time()``, ``t0_ns`` and ``t1_ns`` on ``perf_counter_ns()``."""
     diagnosticsDir = diagnosticsDir or config.diagnosticsDir
     if not diagnosticsDir:
         return
@@ -1325,7 +1381,9 @@ def _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, nTiles,
                padShape=list(padShape),
                device=",".join(dict.fromkeys(str(d) for d in devs)),
                t_wall=time.time(), wall_s=time.time() - tChunk0,
-               cpu_s=time.process_time() - cpu0)
+               cpu_s=time.process_time() - cpu0,
+               t0_ns=t0Ns, t1_ns=time.perf_counter_ns(),
+               **{"pass": timing.RECORDER.passes})
     os.makedirs(diagnosticsDir, exist_ok=True)
     with open(os.path.join(diagnosticsDir, "chunk_budgets.jsonl"),
               "a") as f:
@@ -1344,6 +1402,7 @@ def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
     seconds its tiles' kernel builds and whole stagings took on the
     staging worker."""
     tChunk0 = time.time()
+    t0Ns = time.perf_counter_ns()
     cpu0 = time.process_time()
     P = config.policy
     stacks = [entries[n][1] for n in names]
@@ -1405,4 +1464,4 @@ def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
                  tPhase["hostOther"], tPhase["staging"],
                  tPhase["kernelBuild"]), flush=True)
     _record_chunk(config, diagnosticsDir, tPhase, chunkIdx, len(names), 1,
-                  shape, devs, tChunk0, cpu0)
+                  shape, devs, tChunk0, cpu0, t0Ns)

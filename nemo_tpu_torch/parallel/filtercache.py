@@ -31,6 +31,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import timing
+
 _GiB = 1024 ** 3
 
 
@@ -127,7 +129,8 @@ class BackgroundFITSWriter:
 
     def _ensure_thread(self):
         if self._thread is None or not self._thread.is_alive():
-            self._thread = threading.Thread(target=self._run, daemon=True)
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="fits-writer")
             self._thread.start()
 
     def _run(self):
@@ -139,12 +142,16 @@ class BackgroundFITSWriter:
                 return
             fileName, data, header = item
             try:
-                if isinstance(data, torch.Tensor):
-                    data = data.cpu().numpy()
-                data = np.asarray(data, dtype=np.float64)
-                os.makedirs(os.path.dirname(fileName), exist_ok=True)
-                nfits.write_image(fileName, data, header)
+                with timing.span("writer.fits") as attrs:
+                    if isinstance(data, torch.Tensor):
+                        data = data.cpu().numpy()
+                    data = np.asarray(data, dtype=np.float64)
+                    os.makedirs(os.path.dirname(fileName), exist_ok=True)
+                    nfits.write_image(fileName, data, header)
+                    attrs["bytes"] = data.nbytes
                 self.written += 1
+                timing.count("writer.fits_files")
+                timing.count("writer.fits_bytes", data.nbytes)
             except Exception as exc:      # surfaced per file
                 self._errors[fileName] = exc
             finally:

@@ -22,7 +22,7 @@ import numpy as np
 from . import catalogs, filters, maps, photometry
 from .utils import fits as nfits
 from .utils.tables import Table, vstack
-from .utils.timing import GLOBAL_TIMER
+from .utils import timing
 
 
 def filterMapsAndMakeCatalogs(config, rootOutDir=None, useCachedFilters=False,
@@ -31,50 +31,57 @@ def filterMapsAndMakeCatalogs(config, rootOutDir=None, useCachedFilters=False,
                               invertMap=False, verbose=True,
                               writeAreaMask=False, writeFlagMask=False):
     """Filter maps and construct the optimal catalog, including multi-pass
-    filterSets."""
-    if config.filterSets != [] and not useCachedFilters \
-            and not useCachedFilteredMaps:
-        if rootOutDir is None:
-            rootOutDir = config.rootOutDir
-        for setNum in config.filterSets:
-            print(">>> Filter set: %d" % setNum)
-            config.setFilterSet(setNum)
-            if setNum == config.filterSets[-1]:
-                writeAreaMask = True
-                writeFlagMask = True
-            config.filterSetOptions[setNum]["catalog"] = \
-                _filterMapsAndMakeCatalogs(config, verbose=True,
-                                           writeAreaMask=writeAreaMask,
-                                           writeFlagMask=writeFlagMask)
-            if config.filterSetOptions[setNum]["addSiphonedFromSets"] \
-                    is not None:
-                toStack = [config.filterSetOptions[setNum]["catalog"]]
-                for sip in config.filterSetOptions[setNum][
-                        "addSiphonedFromSets"]:
-                    toStack.append(config.filterSetOptions[sip]["catalog"])
-                config.filterSetOptions[setNum]["catalog"] = vstack(toStack)
-            if config.filterSetOptions[setNum]["saveCatalog"]:
-                label = config.filterSetOptions[setNum].get(
-                    "label", "filterSet%d" % setNum)
-                outFileName = os.path.join(rootOutDir,
-                                           label + "_catalog.fits")
-                catalogs.writeCatalog(
-                    config.filterSetOptions[setNum]["catalog"], outFileName)
-                catalogs.catalog2DS9(
-                    config.filterSetOptions[setNum]["catalog"],
-                    outFileName.replace(".fits", ".reg"))
-        catalog = config.filterSetOptions[config.filterSets[-1]]["catalog"]
-    else:
-        catalog = _filterMapsAndMakeCatalogs(
-            config, rootOutDir=rootOutDir, useCachedFilters=useCachedFilters,
-            useCachedFilteredMaps=useCachedFilteredMaps,
-            useCachedRMSMap=useCachedRMSMap, measureFluxes=measureFluxes,
-            invertMap=invertMap, verbose=verbose,
-            writeAreaMask=writeAreaMask, writeFlagMask=writeFlagMask)
-    if verbose:
-        print("... filtering and catalogs done: %.1f sec since start"
-              % (time.time() - config._timeStarted))
-    return catalog
+    filterSets: one pass of the recorder (:func:`.utils.timing.begin_pass`),
+    timed as its ``pass`` span."""
+    timing.begin_pass()
+    with timing.span("pass"):
+        if config.filterSets != [] and not useCachedFilters \
+                and not useCachedFilteredMaps:
+            if rootOutDir is None:
+                rootOutDir = config.rootOutDir
+            for setNum in config.filterSets:
+                print(">>> Filter set: %d" % setNum)
+                config.setFilterSet(setNum)
+                if setNum == config.filterSets[-1]:
+                    writeAreaMask = True
+                    writeFlagMask = True
+                config.filterSetOptions[setNum]["catalog"] = \
+                    _filterMapsAndMakeCatalogs(config, verbose=True,
+                                               writeAreaMask=writeAreaMask,
+                                               writeFlagMask=writeFlagMask)
+                if config.filterSetOptions[setNum]["addSiphonedFromSets"] \
+                        is not None:
+                    toStack = [config.filterSetOptions[setNum]["catalog"]]
+                    for sip in config.filterSetOptions[setNum][
+                            "addSiphonedFromSets"]:
+                        toStack.append(
+                            config.filterSetOptions[sip]["catalog"])
+                    config.filterSetOptions[setNum]["catalog"] = \
+                        vstack(toStack)
+                if config.filterSetOptions[setNum]["saveCatalog"]:
+                    label = config.filterSetOptions[setNum].get(
+                        "label", "filterSet%d" % setNum)
+                    outFileName = os.path.join(rootOutDir,
+                                               label + "_catalog.fits")
+                    catalogs.writeCatalog(
+                        config.filterSetOptions[setNum]["catalog"],
+                        outFileName)
+                    catalogs.catalog2DS9(
+                        config.filterSetOptions[setNum]["catalog"],
+                        outFileName.replace(".fits", ".reg"))
+            catalog = config.filterSetOptions[config.filterSets[-1]]["catalog"]
+        else:
+            catalog = _filterMapsAndMakeCatalogs(
+                config, rootOutDir=rootOutDir,
+                useCachedFilters=useCachedFilters,
+                useCachedFilteredMaps=useCachedFilteredMaps,
+                useCachedRMSMap=useCachedRMSMap, measureFluxes=measureFluxes,
+                invertMap=invertMap, verbose=verbose,
+                writeAreaMask=writeAreaMask, writeFlagMask=writeFlagMask)
+        if verbose:
+            print("... filtering and catalogs done: %.1f sec since start"
+                  % (time.time() - config._timeStarted))
+        return catalog
 
 
 def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
@@ -128,7 +135,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
             # device detection: segmentation, statistics and the sub-pixel
             # S/N + flux reads ran on the device; the catalog comes from
             # those O(K) values
-            with GLOBAL_TIMER.stage("findObjects"):
+            with timing.span("findObjects"):
                 catalog = photometry.catalogFromDeviceDetections(
                     filteredMapDict,
                     threshold=config.parDict["thresholdSigma"],
@@ -196,7 +203,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 useInterpolator=config.parDict["useInterpolator"],
                 DS9RegionsPath=DS9RegionsPath)
         else:
-            with GLOBAL_TIMER.stage("findObjects"):
+            with timing.span("findObjects"):
                 catalog = photometry.findObjects(
                     filteredMapDict,
                     threshold=config.parDict["thresholdSigma"],
@@ -219,7 +226,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 filteredMapDict["flagMask"], dtype=np.uint8)
 
         if measureFluxes:
-            with GLOBAL_TIMER.stage("measureFluxes"):
+            with timing.span("measureFluxes"):
                 photometry.measureFluxes(
                     catalog, filteredMapDict, config.diagnosticsDir,
                     photFilteredMapDict=photFilteredMapDict,
@@ -252,7 +259,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                     os.path.join(filteredMapsDir, tileName,
                                  "%s_SNMap.fits" % label))
             else:
-                with GLOBAL_TIMER.stage("filterMaps"):
+                with timing.span("filterMaps"):
                     filteredMapDict = filters.filterMaps(
                         config.unfilteredMapsDictList, f, tileName,
                         diagnosticsDir=diagnosticsDir,
@@ -264,7 +271,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
             del filteredMapDict
         photMaps.pop(tileName, None)
 
-    with GLOBAL_TIMER.stage("makeOptimalCatalog"):
+    with timing.span("pass.catalog_merge"):
         optimalCatalog = catalogs.makeOptimalCatalog(
             catalogDict, constraintsList=config.parDict["catalogCuts"])
         # tile-overlap duplicates
@@ -272,20 +279,23 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
             optimalCatalog, numDuplicatesFound, names = \
                 catalogs.removeDuplicates(optimalCatalog)
 
-    if writeAreaMask and len(areaMaskDict) > 0:
-        areaMaskDict.saveMEF(os.path.join(config.selFnDir, "areaMask.fits"),
-                             compressionType="PLIO_1")
-        if config.parDict["stitchTiles"] and config.origWCS is not None:
-            areaMaskDict.saveStitchedFITS(
-                os.path.join(config.selFnDir, "stitched_areaMask.fits"),
-                config.origWCS, compressionType="PLIO_1")
-    if writeFlagMask and len(flagMaskDict) > 0:
-        flagMaskDict.saveMEF(os.path.join(config.selFnDir, "flagMask.fits"),
-                             compressionType="PLIO_1")
-        if config.parDict["stitchTiles"] and config.origWCS is not None:
-            flagMaskDict.saveStitchedFITS(
-                os.path.join(config.selFnDir, "stitched_flagMask.fits"),
-                config.origWCS, compressionType="PLIO_1")
+    with timing.span("pass.mask_files"):
+        if writeAreaMask and len(areaMaskDict) > 0:
+            areaMaskDict.saveMEF(
+                os.path.join(config.selFnDir, "areaMask.fits"),
+                compressionType="PLIO_1")
+            if config.parDict["stitchTiles"] and config.origWCS is not None:
+                areaMaskDict.saveStitchedFITS(
+                    os.path.join(config.selFnDir, "stitched_areaMask.fits"),
+                    config.origWCS, compressionType="PLIO_1")
+        if writeFlagMask and len(flagMaskDict) > 0:
+            flagMaskDict.saveMEF(
+                os.path.join(config.selFnDir, "flagMask.fits"),
+                compressionType="PLIO_1")
+            if config.parDict["stitchTiles"] and config.origWCS is not None:
+                flagMaskDict.saveStitchedFITS(
+                    os.path.join(config.selFnDir, "stitched_flagMask.fits"),
+                    config.origWCS, compressionType="PLIO_1")
 
     return optimalCatalog
 
@@ -421,7 +431,7 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
                 processFilteredMap(f, tileName, byLabel.pop(f["label"]))
             elif f["label"] not in eligibleLabels:
                 # host-only filter of a mixed bank: run it now, tile-local
-                with GLOBAL_TIMER.stage("filterMaps"):
+                with timing.span("filterMaps"):
                     fmd = filters.filterMaps(
                         config.unfilteredMapsDictList, f, tileName,
                         diagnosticsDir=diagnosticsDir,
@@ -475,7 +485,7 @@ def _runBatched(config, filtersList, catalogDict, photMaps,
 
     # one multi-filter call: each tile is loaded and preprocessed once
     # for the whole bank
-    with GLOBAL_TIMER.stage("filterMapsBatched"):
+    with timing.span("filterMapsBatched"):
         batch_engine.batchFilterTilesMulti(
             config, eligible, undoPixelWindow=undoPixelWindow,
             verbose=verbose, consume=consume, detectParams=detectParams,

@@ -30,6 +30,7 @@ from nemo_tpu_torch.models import beams, profiles, sz
 from nemo_tpu_torch.ops import fourier, paint
 from nemo_tpu_torch.parallel import engine, filtercache
 from nemo_tpu_torch.utils import fits as nfits
+from nemo_tpu_torch.utils import timing
 from nemo_tpu_torch.utils import wcs as nwcs
 from nemo_tpu_torch.utils.tables import Table
 
@@ -353,12 +354,95 @@ def test_cli_profile_traces_one_warm_chunk(survey, tmp_path, monkeypatch):
     assert traced == [(1, profileDir)]
     assert engine._chunkCounter[0] == 4
     with open(os.path.join(profileDir, "trace.json")) as f:
-        assert len(json.load(f)["traceEvents"]) > 0
+        trace = json.load(f)
+    assert len(trace["traceEvents"]) > 0
+    # the chunk's host spans, beside the trace and on its clock
+    with open(os.path.join(profileDir, "spans.json")) as f:
+        spans = json.load(f)
+    assert spans["baseTimeNanoseconds"] == trace["baseTimeNanoseconds"]
+    xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    lo = min(e["ts"] for e in xs)
+    hi = max(e["ts"] + e["dur"] for e in xs)
+    events = [e for e in spans["traceEvents"] if e["ph"] == "X"]
+    assert {"chunk", "chunk.step", "chunk.emit"} \
+        <= {e["name"] for e in events}
+    # the profiler's clock and the recorder's realtime export agree to
+    # well under a millisecond
+    for e in events:
+        assert lo - 1000.0 <= e["ts"] <= e["ts"] + e["dur"] <= hi + 1000.0, e
     assert len(cats["plain"]) == len(cats["profiled"]) > 0
     for col in cats["plain"].keys():
         np.testing.assert_array_equal(np.asarray(cats["profiled"][col]),
                                       np.asarray(cats["plain"][col]),
                                       err_msg=col)
+
+
+def test_spans_of_a_traced_run(survey, tmp_path, monkeypatch):
+    """A batched run (two chunks of two tiles, device detection) under a
+    CPU profiler: the staging spans on the worker thread, one
+    ``stage.tile`` a tile and one ``stage.filter`` a (tile, filter),
+    ``pass`` and ``chunk`` on every span under a chunk, each budget
+    field the sum of its spans, and one ``stage.beam_reads`` a read of a
+    beam file."""
+    beamFiles = {m["beamFileName"] for m in survey["cfg"]["unfilteredMaps"]}
+    reads = []
+    loadtxt = np.loadtxt
+
+    def counting(fname, *a, **k):
+        if fname in beamFiles:
+            reads.append(fname)
+        return loadtxt(fname, *a, **k)
+
+    monkeypatch.setattr(np, "loadtxt", counting)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        cat, config = run_torch(survey["cfg"], str(tmp_path / "traced"),
+                                useDeviceBatching=True,
+                                useDeviceDetection=True, deviceBatchSize=2)
+    compare(survey["det"], cat)
+    session = timing.RECORDER.session
+    recs = session.records()
+    byId = {r["id"]: r for r in recs}
+    nTiles, nFilters = len(config.tileNames), len(survey["cfg"]["mapFilters"])
+    names = [r["name"] for r in recs]
+    assert names.count("stage.tile") == nTiles == 4
+    assert names.count("stage.filter") == nTiles * nFilters
+    assert names.count("pass") == 1
+    passNo = next(r for r in recs if r["name"] == "pass")["attrs"]["pass"]
+    for r in recs:
+        if r["name"].startswith("stage."):
+            assert r["thread"].startswith("stage"), r
+
+    def underChunk(r):
+        while r["parent"] is not None:
+            r = byId[r["parent"]]
+            if r["name"] == "chunk":
+                return True
+        return False
+
+    inChunk = [r for r in recs if underChunk(r)]
+    assert {"chunk.step", "chunk.emit", "emit.download", "emit.calib",
+            "emit.catalog"} <= {r["name"] for r in inChunk}
+    for r in inChunk:
+        assert r["attrs"]["pass"] == passNo and "chunk" in r["attrs"], r
+    with open(os.path.join(config.diagnosticsDir,
+                           "chunk_budgets.jsonl")) as f:
+        budgets = [json.loads(line) for line in f]
+    assert [b["chunk"] for b in budgets] == [0, 1]
+    for b in budgets:
+        assert b["pass"] == passNo and b["t0_ns"] < b["t1_ns"]
+        for field, name in (("stageWait", "loop.stage_wait"),
+                            ("upload", "chunk.upload"),
+                            ("step", "chunk.step"),
+                            ("download", "emit.download"),
+                            ("consume", "emit.catalog")):
+            total = sum((r["t1"] - r["t0"]) / 1e9 for r in recs
+                        if r["name"] == name
+                        and r["attrs"].get("chunk") == b["chunk"])
+            assert b[field] == pytest.approx(total, abs=1e-6), field
+    assert session.counts["stage.tiles"] == nTiles
+    assert session.counts["stage.filter_objects"] == nTiles * nFilters
+    assert session.counts["stage.beam_reads"] == len(reads) > 0
 
 
 def test_mixed_bank_streams_and_matches(survey, tmp_path):

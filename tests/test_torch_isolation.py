@@ -14,12 +14,12 @@ import nemo_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# Copied modules: identical to nemo_tpu's apart from import lines (and, in
-# utils/timing.py, the profiler: torch.profiler replaces jax.profiler; in
-# the DEVICE_THREADED modules, the explicit device passed down to the
-# Boltzmann solve).
+# Copied modules: identical to nemo_tpu's apart from import lines, the
+# port's recorder counts (``timing.count(...)`` lines) and, in the
+# DEVICE_THREADED modules, the explicit device passed down to the
+# Boltzmann solve.
 COPIED = ["utils/fits.py", "utils/wcs.py", "utils/tables.py",
-          "utils/timing.py", "utils/__init__.py", "native/__init__.py",
+          "utils/__init__.py", "native/__init__.py",
           "native/rice_py.py", "native/rice.cpp", "ops/interp.py",
           "ops/hankel.py", "models/beams.py", "models/gnfw.py",
           "models/sz.py", "models/cosmology.py", "catalogs.py",
@@ -30,6 +30,7 @@ _DEVICE_ARG = re.compile(r",\s*(self\.)?device\b(=[\w.\"']+)?")
 _DEVICE_LINE = re.compile(r"^\s*self\.device = .*\n", re.M)
 
 _IMPORT = re.compile(r"^\s*(import \w|from \S+ import )")
+_COUNT = re.compile(r"^\s*timing\.count\(.*\)$")
 
 _BLOCKER = r"""
 import importlib, importlib.abc, os, sys
@@ -112,14 +113,10 @@ def test_no_import_statement_names_jax_or_nemo_tpu():
 def _normalised(path, rel):
     with open(path) as f:
         text = f.read()
-    if rel == "utils/timing.py":
-        # the module docstring and profile_trace name their profiler
-        text = text[text.index('"""', 3) + 3:]
-        text = text[:text.index("@contextlib.contextmanager\n"
-                                "def profile_trace")]
     if rel in DEVICE_THREADED:
         text = _DEVICE_ARG.sub("", _DEVICE_LINE.sub("", text))
-    return [line for line in text.splitlines() if not _IMPORT.match(line)]
+    return [line for line in text.splitlines()
+            if not _IMPORT.match(line) and not _COUNT.match(line)]
 
 
 @pytest.mark.parametrize("rel", COPIED)
