@@ -36,7 +36,7 @@ import torch
 
 from . import device as device_mod
 from .models import profiles, sz
-from .models.beams import BeamProfile
+from .models.beams import BeamProfile, _parse_solid_angle
 from .ops import fourier, grf, imageops, interp, sht
 from .ops import noise as noise_ops
 from .ops import solve as solve_ops
@@ -78,6 +78,33 @@ def filterMaps(unfilteredMapsDictList, filterParams, tileName,
     return filteredMapDict
 
 
+def combinedFlagMask(mapDicts, shape):
+    """The flag mask of a filter over these preprocessed maps: each map's
+    ``flagMask`` times its 1-based index, summed (int)."""
+    flagMask = np.zeros(shape, dtype=int)
+    for i, mapDict in enumerate(mapDicts):
+        flagMask = flagMask + np.asarray(mapDict["flagMask"]) * (i + 1)
+    return flagMask
+
+
+def beamSolidAngles(mapDicts):
+    """{obsFreqGHz: beam solid angle in nsr} for Jy conversions: a map's
+    own ``solidAngle_nsr`` where set, else what its beam file's header
+    declares (0 without), as ``BeamProfile`` reads it.  A beam file that
+    cannot be opened raises (OSError)."""
+    solidAngles = {}
+    for mapDict in mapDicts:
+        if "solidAngle_nsr" in mapDict and mapDict["solidAngle_nsr"]:
+            sa = mapDict["solidAngle_nsr"]
+        else:
+            # _parse_solid_angle reads 0 from a file it cannot open
+            with open(mapDict["beamFileName"]):
+                pass
+            sa = _parse_solid_angle(mapDict["beamFileName"])
+        solidAngles[mapDict["obsFreqGHz"]] = sa
+    return solidAngles
+
+
 # ----------------------------------------------------------------------------
 class MapFilter:
     """Base class: holds the preprocessed per-frequency tile maps plus the
@@ -91,11 +118,15 @@ class MapFilter:
 
     def __init__(self, label, unfilteredMapsDictList, paramsDict,
                  tileName="PRIMARY", diagnosticsDir=None, selFnDir=None,
-                 geometryOnly=False, policy=None):
+                 geometryOnly=False, policy=None, tileState=None):
         """``geometryOnly=True`` skips the per-tile map preprocessing and
         derives (shape, wcs) from the tile coords alone, for consumers that
         only load + apply a cached filter.  ``policy`` defaults to the
-        card."""
+        card.  ``tileState``: the tile's ``flagMask`` and
+        ``beamSolidAngles`` (:func:`combinedFlagMask`,
+        :func:`beamSolidAngles`) already made from these preprocessed
+        maps, so the filters of a bank share them (the flag mask is not
+        copied: it is read only); ignored with ``mapToUse``."""
         self.label = label
         self.params = dict(paramsDict)
         self.tileName = tileName
@@ -133,21 +164,18 @@ class MapFilter:
             self.wcs = self.unfilteredMapsDictList[0]["wcs"]
             self.shape = self.unfilteredMapsDictList[0]["data"].shape
 
-        self.flagMask = np.zeros(self.shape, dtype=int)
-        if not self.geometryOnly:
-            for i, mapDict in enumerate(self.unfilteredMapsDictList):
-                self.flagMask = self.flagMask + (
-                    np.asarray(mapDict["flagMask"]) * (i + 1))
-
-        # beam solid angles for Jy conversions
-        self.beamSolidAnglesDict = {}
-        for mapDict in self.unfilteredMapsDictList:
-            if "solidAngle_nsr" in mapDict and mapDict["solidAngle_nsr"]:
-                sa = mapDict["solidAngle_nsr"]
-            else:
-                sa = BeamProfile(
-                    beamFileName=mapDict["beamFileName"]).solidAngle_nsr
-            self.beamSolidAnglesDict[mapDict["obsFreqGHz"]] = sa
+        # a tile state describes every map given: a filter that picks its
+        # bands with mapToUse builds its own
+        if tileState is not None and not self.params.get("mapToUse"):
+            timing.count("stage.tile_state_shared")
+            self.flagMask = tileState["flagMask"]
+            self.beamSolidAnglesDict = dict(tileState["beamSolidAngles"])
+        else:
+            self.flagMask = np.zeros(self.shape, dtype=int) \
+                if self.geometryOnly \
+                else combinedFlagMask(self.unfilteredMapsDictList, self.shape)
+            self.beamSolidAnglesDict = beamSolidAngles(
+                self.unfilteredMapsDictList)
 
         self.apodPix = 20
 

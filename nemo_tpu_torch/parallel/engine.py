@@ -177,7 +177,9 @@ def _stage_tile_common_from_maps(mapsList):
     Ragged-coverage tiles get the coverage-edge taper folded into their
     apodisation and carry the coverage distance transform (``coverEdt``)
     so :func:`_prepare_tile` can fold the coverage-edge trim into the
-    survey mask."""
+    survey mask.  It also holds the tile's state every filter of the bank
+    shares (``MapFilter``'s ``tileState``): the combined ``flagMask``,
+    made read only, and the ``beamSolidAngles``."""
     dataStack = np.stack([np.asarray(m["data"], dtype=np.float64)
                           for m in mapsList])
     shape = dataStack.shape[-2:]
@@ -193,9 +195,12 @@ def _stage_tile_common_from_maps(mapsList):
         coverEdt = distance_transform_edt(validHost).astype(np.float32)
         apodM = apodM * (0.5 - 0.5 * np.cos(
             np.pi * np.minimum(coverEdt / 20.0, 1.0)))
+    flagMask = filters_mod.combinedFlagMask(mapsList, shape)
+    flagMask.setflags(write=False)
     return {"data": dataStack, "apodM": apodM, "surveyMask": surveyMask,
             "psMask": psMask, "shape": shape, "padShape": padShape,
-            "coverEdt": coverEdt}
+            "coverEdt": coverEdt, "flagMask": flagMask,
+            "beamSolidAngles": filters_mod.beamSolidAngles(mapsList)}
 
 
 def _templateTable(f, beamFileName, amplitude, cache):
@@ -356,9 +361,10 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
 
     ``templateCache`` shares templates between tiles of identical
     geometry; ``common`` is a :func:`_stage_tile_common_from_maps` dict
-    shared by the bank's filters.  With ``useCachedFilter`` the tile's
-    saved filter and its SIGNORM are staged too (``cachedFilt``,
-    ``cachedNorm``; None where no cache of the right shape exists)."""
+    shared by the bank's filters, whose filter objects take its tile
+    state.  With ``useCachedFilter`` the tile's saved filter and its
+    SIGNORM are staged too (``cachedFilt``, ``cachedNorm``; None where no
+    cache of the right shape exists)."""
     filterClass = filters_mod.getFilterClass(f["class"])
     with timing.span("stage.filter_object"):
         filterObj = filterClass(f["label"],
@@ -367,7 +373,7 @@ def _prepare_tile(config, f, tileName, templateCache=None, mapsList=None,
                                 diagnosticsDir=diagnosticsDir
                                 or config.diagnosticsDir,
                                 selFnDir=config.selFnDir,
-                                policy=config.policy)
+                                policy=config.policy, tileState=common)
     timing.count("stage.filter_objects")
     params = filterObj.params
     if common is None or params.get("mapToUse"):

@@ -25,7 +25,7 @@ import yaml
 from nemo_tpu import filters as jfilters
 from nemo_tpu import pipelines as jpipelines
 from nemo_tpu import startup as jstartup
-from nemo_tpu_torch import catalogs, pipelines, startup
+from nemo_tpu_torch import catalogs, filters, pipelines, startup
 from nemo_tpu_torch.models import beams, profiles, sz
 from nemo_tpu_torch.ops import fourier, paint
 from nemo_tpu_torch.parallel import engine, filtercache
@@ -443,6 +443,93 @@ def test_spans_of_a_traced_run(survey, tmp_path, monkeypatch):
     assert session.counts["stage.tiles"] == nTiles
     assert session.counts["stage.filter_objects"] == nTiles * nFilters
     assert session.counts["stage.beam_reads"] == len(reads) > 0
+
+
+def test_bank_shares_tile_state(survey, tmp_path, monkeypatch):
+    """The staging worker makes a tile's flag mask and beam solid angles
+    once (``_stage_tile_common_from_maps``) and every filter of the bank
+    takes them: one flag-mask array a tile, bitwise the per-filter sum,
+    the solid angles ``BeamProfile`` reads, no beam file read while a
+    filter object is built, and a catalog (flags included: each band has
+    a flag mask) bitwise that of a run in which each filter makes its
+    own."""
+    cfg = copy.deepcopy(survey["cfg"])
+    w = nwcs.makeWCS(SHAPE, PIX_ARCMIN / 60.0, centreRADeg=30.0,
+                     centreDecDeg=0.0)
+    rng = np.random.default_rng(5)
+    for m in cfg["unfilteredMaps"]:
+        m["flagMask"] = m["mapFileName"].replace(".fits", "_flags.fits")
+        nfits.write_image(m["flagMask"],
+                          (rng.random(SHAPE) < 0.2).astype(np.uint8),
+                          w.header)
+    built, counts, readsIn = [], {}, []
+    prepare, count = engine._prepare_tile, timing.count
+
+    def recording(config, f, tileName, **k):
+        filterObj, stacks = prepare(config, f, tileName, **k)
+        built.append((tileName, filterObj, stacks["common"]))
+        return filterObj, stacks
+
+    def counting(name, n=1):
+        counts[name] = counts.get(name, 0) + n
+        if name == "stage.beam_reads":
+            readsIn.append([s.name for s in timing.RECORDER._stack()])
+        return count(name, n)
+
+    monkeypatch.setattr(engine, "_prepare_tile", recording)
+    monkeypatch.setattr(timing, "count", counting)
+
+    def run(name):
+        built.clear()
+        counts.clear()
+        readsIn.clear()
+        cat, config = run_torch(cfg, str(tmp_path / name),
+                                useDeviceBatching=True,
+                                useDeviceDetection=True, deviceBatchSize=2)
+        return cat, config, list(built), dict(counts)
+
+    sharedCat, config, sharedBuilt, sharedCounts = run("shared")
+    nFilters = len(cfg["mapFilters"])
+    assert sharedCounts["stage.tile_state_shared"] \
+        == sharedCounts["stage.filter_objects"] == 4 * nFilters
+    assert readsIn and not any("stage.filter_object" in st
+                               for st in readsIn)
+    init = filters.MapFilter.__init__
+    monkeypatch.setattr(
+        filters.MapFilter, "__init__",
+        lambda self, *a, tileState=None, **k: init(self, *a, **k))
+    ownCat, _, ownBuilt, ownCounts = run("own")
+    assert "stage.tile_state_shared" not in ownCounts
+    solidAngles = {m["obsFreqGHz"]: beams.BeamProfile(
+        beamFileName=m["beamFileName"]).solidAngle_nsr
+        for m in cfg["unfilteredMaps"]}
+    assert all(sa > 0 for sa in solidAngles.values())
+    own = {(t, fo.label): fo for t, fo, _ in ownBuilt}
+    for tileName in config.tileNames:
+        objs = [(fo, common) for t, fo, common in sharedBuilt
+                if t == tileName]
+        assert len(objs) == nFilters
+        flagMask = objs[0][1]["flagMask"]
+        assert not flagMask.flags.writeable
+        mapsList = engine._preprocessTileOnce(config, tileName)
+        perFilter = np.zeros(flagMask.shape, dtype=int)
+        for i, m in enumerate(mapsList):
+            perFilter = perFilter + np.asarray(m["flagMask"]) * (i + 1)
+        assert perFilter.max() == 3
+        for fo, _ in objs:
+            assert fo.flagMask is flagMask
+            assert fo.beamSolidAnglesDict == solidAngles
+            ref = own[(tileName, fo.label)]
+            assert ref.flagMask is not flagMask
+            for mask in (perFilter, ref.flagMask):
+                assert mask.dtype == flagMask.dtype
+                np.testing.assert_array_equal(mask, flagMask)
+            assert ref.beamSolidAnglesDict == solidAngles
+    assert len(sharedCat) == len(ownCat) > 0
+    assert np.asarray(sharedCat["flags"]).max() > 0
+    for col in sharedCat.keys():
+        np.testing.assert_array_equal(np.asarray(sharedCat[col]),
+                                      np.asarray(ownCat[col]), err_msg=col)
 
 
 def test_mixed_bank_streams_and_matches(survey, tmp_path):

@@ -19,6 +19,7 @@ from nemo_tpu.models import beams as jbeams
 from nemo_tpu.utils import wcs as jwcs
 from nemo_tpu_torch import device as device_mod
 from nemo_tpu_torch import filters as tflt
+from nemo_tpu_torch.models import beams as tbeams
 from nemo_tpu_torch.utils import wcs as twcs
 
 SHAPE = (120, 150)
@@ -168,3 +169,59 @@ def test_filter_fits_cache_read_both_ways(tile, made_by):
     close(loader.signalNorm, built.signalNorm)
     assert loader.fRelWeights == pytest.approx(built.fRelWeights, rel=1e-12)
     assert_same_output(loaded, out)
+
+
+# -- the tile state a bank's filters share -----------------------------------------
+
+@pytest.mark.parametrize("case", ["map_to_use", "solid_angle_header",
+                                  "missing_beam_file"])
+def test_tile_state_of_a_filter(tile, case):
+    """A filter built on a tile's shared state (``tileState``: the flag
+    mask and beam solid angles the staging worker makes once a tile) and
+    one that makes its own: a filter that picks its band with
+    ``mapToUse`` makes its own from that band; a beam file's declared
+    solid angle reads the same through both routes and ``BeamProfile``;
+    a missing beam file raises at construction, as it did when the
+    constructor read the whole beam file."""
+    d, _, tdicts = tile
+    rng = np.random.default_rng(3)
+    dicts = [dict(m, label=band,
+                  flagMask=(rng.random(SHAPE) < 0.1).astype(np.uint8))
+             for m, (band, *_) in zip(tdicts, BANDS)]
+
+    def build(**k):
+        return tflt.ArnaudModelMatchedFilter(
+            "A", dicts, dict(PARAMS, **k.pop("params", {})), tileName="T",
+            policy=device_mod.CPU, **k)
+
+    if case == "missing_beam_file":
+        dicts[1]["beamFileName"] = str(d / "no_such_beam.txt")
+        with pytest.raises(FileNotFoundError):
+            build()
+        with pytest.raises(FileNotFoundError):
+            tflt.beamSolidAngles(dicts)
+        return
+    if case == "solid_angle_header":
+        beam = str(d / "beam_declared.txt")
+        with open(dicts[0]["beamFileName"]) as f:
+            rows = f.readlines()[1:]
+        with open(beam, "w") as f:
+            f.writelines(["# solid angle = 123.5 nsr\n"] + rows)
+        dicts[0]["beamFileName"] = beam
+    state = {"flagMask": tflt.combinedFlagMask(dicts, SHAPE),
+             "beamSolidAngles": tflt.beamSolidAngles(dicts)}
+    own, shared = build(), build(tileState=state)
+    assert shared.flagMask is state["flagMask"]
+    assert own.flagMask.dtype == shared.flagMask.dtype
+    np.testing.assert_array_equal(own.flagMask, shared.flagMask)
+    assert own.beamSolidAnglesDict == shared.beamSolidAnglesDict == {
+        m["obsFreqGHz"]: tbeams.BeamProfile(
+            beamFileName=m["beamFileName"]).solidAngle_nsr for m in dicts}
+    if case == "solid_angle_header":
+        assert shared.beamSolidAnglesDict[dicts[0]["obsFreqGHz"]] == 123.5
+        return
+    one = build(params={"mapToUse": "f090"}, tileState=state)
+    assert one.flagMask is not state["flagMask"]
+    np.testing.assert_array_equal(one.flagMask, dicts[1]["flagMask"])
+    assert one.flagMask.max() == 1 and state["flagMask"].max() == 3
+    assert list(one.beamSolidAnglesDict) == [dicts[1]["obsFreqGHz"]]
