@@ -1,15 +1,29 @@
 """Batched small-matrix solves for the per-pixel matched-filter equations.
 
 Port of ``nemo_tpu/ops/solve.py``: closed-form adjugate inverses for
-n_freq <= 3 as one elementwise expression over the Fourier grid, with
-``torch.linalg.solve`` for larger frequency counts.
+n_freq <= 3 as one elementwise expression over the Fourier grid, and for
+larger frequency counts a batched LU factorisation and solve
+(``torch.linalg.lu_factor_ex`` / ``lu_solve``).  Every route gives zeros
+where the system is singular (det == 0), with no exception and no host
+sync; the JAX package's ``jnp.linalg.solve`` leaves non-finite values
+there for n_freq > 3, a deliberate deviation.
 """
 
 import torch
 
+from ..utils import timing
 
-def _zero_singular(det, x):
-    return torch.where((det == 0)[..., None], torch.zeros_like(x), x)
+
+def _lu_solve(A, b):
+    """(x, det) of A x = b by the batched LU with partial pivoting.  The
+    determinant is the product of U's diagonal, as ``torch.linalg.det``
+    forms it; where it is 0 the solve divides by a zero pivot and ``x``
+    holds non-finite values that the caller replaces."""
+    n = A.shape[-1]
+    timing.count("solve.general_systems", A.numel() // (n * n))
+    LU, pivots, _ = torch.linalg.lu_factor_ex(A)
+    det = torch.diagonal(LU, dim1=-2, dim2=-1).prod(dim=-1)
+    return torch.linalg.lu_solve(LU, pivots, b[..., None])[..., 0], det
 
 
 def solve_small(A, b):
@@ -26,16 +40,16 @@ def solve_small(A, b):
     if n == 1:
         det = A[..., 0, 0]
         safe = torch.where(det == 0, torch.ones_like(det), det)
-        return _zero_singular(det, (b[..., 0] / safe)[..., None])
-    if n == 2:
+        x = (b[..., 0] / safe)[..., None]
+    elif n == 2:
         a, bb = A[..., 0, 0], A[..., 0, 1]
         c, d = A[..., 1, 0], A[..., 1, 1]
         det = a * d - bb * c
         safe = torch.where(det == 0, torch.ones_like(det), det)
         x0 = (d * b[..., 0] - bb * b[..., 1]) / safe
         x1 = (-c * b[..., 0] + a * b[..., 1]) / safe
-        return _zero_singular(det, torch.stack([x0, x1], dim=-1))
-    if n == 3:
+        x = torch.stack([x0, x1], dim=-1)
+    elif n == 3:
         a11, a12, a13 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
         a21, a22, a23 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
         a31, a32, a33 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -54,5 +68,7 @@ def solve_small(A, b):
         x0 = (c11 * b0 + c12 * b1 + c13 * b2) / safe
         x1 = (c21 * b0 + c22 * b1 + c23 * b2) / safe
         x2 = (c31 * b0 + c32 * b1 + c33 * b2) / safe
-        return _zero_singular(det, torch.stack([x0, x1, x2], dim=-1))
-    return torch.linalg.solve(A, b[..., None])[..., 0]
+        x = torch.stack([x0, x1, x2], dim=-1)
+    else:
+        x, det = _lu_solve(A, b)
+    return torch.where((det == 0)[..., None], torch.zeros_like(x), x)

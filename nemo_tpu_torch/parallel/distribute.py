@@ -269,8 +269,10 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
     "surveyMask" (uint8), "signalNorm"; the lean tail "RMSCells" instead of
     the S/N and RMS maps; the detection tail adds "det", "subSpline",
     "subNearest" (``detect_params`` = (threshold, maxObjects, nIter,
-    useCom, cutWindow)).  Always "calibCrop" (T, nf, 33, 33), and "filt"
-    with ``return_filter``.
+    useCom, cutWindow)).  Always "calibCrop" (T, nf, 33, 33) and
+    "singularSystems" (T,) (each tile's Fourier pixels whose band x band
+    system is singular, so their filter is 0, under a right-hand side
+    that is not), and "filt" with ``return_filter``.
     """
 
     def one_batch(d, n, t, c, w, apod, fg, peakYX):
@@ -279,6 +281,11 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
         fNoise = fMaps if n is d else fourier.rfft2(n * apod[:, None])
         fSignalAbs = torch.abs(fourier.rfft2(t))
         filt = _covariance_filter(fNoise, fSignalAbs, w, fg, nx)
+        # a singular system (det == 0) gets a zero filter for a nonzero
+        # right-hand side w |s|: each tile's count, kept on the device
+        rhs = fSignalAbs * w[:, None, None]
+        singular = ((filt == 0).all(dim=1) & (rhs != 0).any(dim=1)) \
+            .reshape(T, -1).sum(dim=1)
         # Calibration: a 33 x 33 window of the filtered known-amplitude
         # template around the tile centre, evaluated straight from the
         # half-grid spectra (fourier.windowed_irfft2); the host reads the
@@ -293,7 +300,7 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
         px = torch.clamp(peakYX[:, 1] - x0c, 0, 32)
         peak = crop.sum(dim=1)[torch.arange(T, device=d.device), py, px]
         filtered = torch.sum(fourier.irfft2(fMaps * filt, (ny, nx)), dim=1)
-        return filtered, 1.0 / peak, filt, crop
+        return filtered, 1.0 / peak, filt, crop, singular
 
     def tail(filtered, norms, filterOut, apodM, psMask, surveyMask, meta):
         filtered = filtered * psMask
@@ -354,9 +361,9 @@ def make_matched_filter_step(gridSize, trimPix, undo_pixel_window=False,
         with _COUNT_LOCK:
             make_matched_filter_step.calls["build"] += 1
         dt = data.dtype
-        filtered, norms, filt, crops = one_batch(
+        filtered, norms, filt, crops, singular = one_batch(
             data, noise, template, calib, w, apodM, fgPower, peakYX)
-        filterOut = {"calibCrop": crops}
+        filterOut = {"calibCrop": crops, "singularSystems": singular}
         if return_filter:
             filterOut["filt"] = filt
         return tail(filtered, norms, filterOut, apodM, psMask.to(dt),

@@ -837,6 +837,17 @@ def _download(t, tPhase):
     return a
 
 
+def _step_norms(out, tPhase):
+    """The step's signal norms, downloaded together with its tiles' counts
+    of singular band x band systems, which add to the counter
+    ``solve.singular_systems`` (no download of their own)."""
+    both = _download([torch.stack([n, c.to(n.dtype)], dim=-1)
+                      for n, c in zip(out["signalNorm"],
+                                      out["singularSystems"])], tPhase)
+    timing.count("solve.singular_systems", int(both[:, 1].sum()))
+    return both[:, 0]
+
+
 def _tile(parts, i):
     """Tile ``i`` of a batch given as per-shard tensors (a view on its
     shard's device)."""
@@ -1280,7 +1291,8 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
             mesh, gridSize, trimPix, lean_outputs=not useDetect,
             detect_params=detectParams if useDetect else None,
             return_filter=wantFilter, given_filter=given)
-        with timing.span("chunk.step", into=(tPhase, "step"), label=label):
+        with timing.span("chunk.step", into=(tPhase, "step"), label=label,
+                         bands=int(dataDev[0].shape[1])):
             if given:
                 # a device-cached filter moves to its shard's device
                 out = step(dataDev, [torch.stack([
@@ -1328,7 +1340,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
                 tPhase["givenLabels"] += 1
             else:
                 crops = _download(out["calibCrop"], tPhase)
-                stepNorms = _download(out["signalNorm"], tPhase)
+                stepNorms = _step_norms(out, tPhase)
                 with timing.span("emit.calib"):
                     hostNorms, fRelW = _calibNormsFromCrops(
                         crops, stepNorms, st, names, padShape)

@@ -291,6 +291,43 @@ def test_batched_step_on_card_matches_cpu(cuda_card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-3)])
+def test_general_solve_has_no_host_sync(cuda_card, dtype, rtol):
+    """The n > 3 route of ``solve_small`` (batched LU) on six-band systems
+    laid out as the batched step lays them, under torch's sync debug mode
+    "error", so that a host sync fails it: exact zeros at the planted
+    singular systems (all zero, all ones), the rest as the CPU's
+    float64."""
+    from nemo_tpu_torch.ops import solve as ts
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(4, 6, 6, 30, 33))
+    A = np.einsum("tiryx,tjryx->tijyx", A, A) \
+        + 6 * np.eye(6)[None, :, :, None, None]
+    A[0, :, :, 0, 0] = 0.0
+    A[2, :, :, 5, 7] = 1.0
+    b = rng.normal(size=(4, 30, 33, 6))
+    good = np.ones((4, 30, 33), bool)
+    good[0, 0, 0] = good[2, 5, 7] = False
+    Ad = torch.as_tensor(A, dtype=dtype, device=cuda_card)
+    bd = torch.as_tensor(b, dtype=dtype, device=cuda_card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = ts.solve_small(Ad.permute(0, 3, 4, 1, 2), bd)
+        zero = (x == 0).all(dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(zero.cpu().numpy(), ~good)
+    x = x.cpu().numpy()
+    assert np.all(np.isfinite(x))
+    ref = ts.solve_small(torch.as_tensor(A).permute(0, 3, 4, 1, 2),
+                         torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(x[good], ref[good], rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+
+
+@pytest.mark.cuda
 def test_boltzmann_kernel_matches_plain(cuda_card):
     """csrc/boltzmann_rk4.cu against its plain version on the card, 24 k
     across the splice grid at nGrid 2,048: the same float64 arithmetic on
