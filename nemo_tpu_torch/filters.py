@@ -41,6 +41,7 @@ from .ops import fourier, grf, imageops, interp, sht
 from .ops import noise as noise_ops
 from .ops import solve as solve_ops
 from .utils import fits as nfits
+from .utils import fits_rows
 from .utils import timing
 
 
@@ -680,8 +681,8 @@ class MatchedFilter(MapFilter):
                 self.selFnDir, self.tileName,
                 "RMSMap_%s#%s.fits" % (self.label, self.tileName))
             os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
-            nfits.write_image(RMSFileName, RMSMap, self.wcs.header,
-                              compressionType="RICE_1")
+            fits_rows.write_image(RMSFileName, RMSMap, self.wcs.header,
+                                  compressionType="RICE_1")
         if params.get("saveFilter") and self.filterFileName is not None:
             self.saveFilter()
         if params.get("savePlots") and self.diagnosticsDir is not None:
@@ -1189,8 +1190,8 @@ class RealSpaceMatchedFilter(MapFilter):
                 self.selFnDir, self.tileName,
                 "RMSMap_%s#%s.fits" % (self.label, self.tileName))
             os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
-            nfits.write_image(RMSFileName, RMSMap, self.wcs.header,
-                              compressionType="RICE_1")
+            fits_rows.write_image(RMSFileName, RMSMap, self.wcs.header,
+                                  compressionType="RICE_1")
 
         return {"data": np.asarray(filteredMap), "wcs": self.wcs,
                 "obsFreqGHz": combinedObsFreqGHz,

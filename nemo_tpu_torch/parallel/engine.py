@@ -815,13 +815,13 @@ def _unitsMeta(filterObj):
 
 
 def _writeRMSMap(config, filterObj, tileName, RMSMap):
-    from ..utils import fits as nfits
+    from ..utils import fits_rows
     RMSFileName = os.path.join(
         config.selFnDir, tileName,
         "RMSMap_%s#%s.fits" % (filterObj.label, tileName))
     os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
-    nfits.write_image(RMSFileName, RMSMap, filterObj.wcs.header,
-                      compressionType="RICE_1")
+    fits_rows.write_image(RMSFileName, RMSMap, filterObj.wcs.header,
+                          compressionType="RICE_1")
 
 
 def _download(t, tPhase):

@@ -574,3 +574,56 @@ def test_batched_config_keys_are_validated(survey, key, value):
     cfg[key] = value
     with pytest.raises(ValueError, match=key):
         startup.parseConfigDict(cfg)
+
+
+def test_selfn_files_match_the_copied_writer(survey, tmp_path, monkeypatch):
+    """A detect-mode run writes its photometry filter's RMS maps and the
+    area and flag masks (MEFs and stitched maps) through the whole-image
+    encoder: each file is
+    byte for byte what the copied per-row writer writes for the same
+    arrays, and every row of them took the whole-image path."""
+    from nemo_tpu_torch.utils import fits_rows
+    calls = []
+    writeImage, writeMef = fits_rows.write_image, fits_rows.write_mef
+
+    def image(path, data, header=None, compressionType=None, **k):
+        calls.append(("image", path, np.array(data), dict(header or {}),
+                      compressionType))
+        return writeImage(path, data, header, compressionType, **k)
+
+    def mef(path, named, headers=None, compressionType=None, **k):
+        calls.append(("mef", path, {n: np.array(a) for n, a in named.items()},
+                      {n: dict(h) for n, h in (headers or {}).items()},
+                      compressionType))
+        return writeMef(path, named, headers, compressionType, **k)
+
+    monkeypatch.setattr(fits_rows, "write_image", image)
+    monkeypatch.setattr(fits_rows, "write_mef", mef)
+    before = dict(timing.RECORDER.counters)
+    _, config = run_torch(survey["cfg"], str(tmp_path / "det"),
+                          useDeviceBatching=True, useDeviceDetection=True,
+                          deviceBatchSize=4)
+    counted = {k: timing.RECORDER.counters.get(k, 0) - before.get(k, 0)
+               for k in ("fits.rows_native", "fits.rows_fallback")}
+    names = sorted(os.path.relpath(c[1], config.selFnDir) for c in calls)
+    assert names == ["%s/RMSMap_%s#%s.fits" % (t, PHOT, t)
+                     for t in sorted(config.tileNames)] \
+        + ["areaMask.fits", "flagMask.fits", "stitched_areaMask.fits",
+           "stitched_flagMask.fits"]
+    rows = 0
+    for kind, path, data, headers, compressionType in calls:
+        ref = str(tmp_path / "ref.fits")
+        if kind == "image":
+            assert compressionType == ("PLIO_1" if "stitched" in path
+                                       else "RICE_1")
+            nfits.write_image(ref, data, headers,
+                              compressionType=compressionType)
+            rows += data.shape[0]
+        else:
+            assert compressionType == "PLIO_1" and len(data) == 4
+            nfits.write_mef(ref, data, headers=headers,
+                            compressionType=compressionType)
+            rows += sum(a.shape[0] for a in data.values())
+        with open(path, "rb") as f, open(ref, "rb") as g:
+            assert f.read() == g.read(), path
+    assert counted == {"fits.rows_native": rows, "fits.rows_fallback": 0}

@@ -211,15 +211,17 @@ def band_dicts(nBands, shape):
 
 def capture_rms(mp, mod):
     """Record the RMS maps a package's filters write, before RICE
-    compression quantises them."""
+    compression quantises them (the port writes them through
+    ``utils.fits_rows``, the JAX package through ``utils.fits``)."""
     written = {}
-    orig = mod.nfits.write_image
+    writer = getattr(mod, "fits_rows", mod.nfits)
+    orig = writer.write_image
 
     def rec(path, data, *a, **k):
         if os.path.basename(path).startswith("RMSMap_"):
             written[os.path.basename(path)] = np.array(data)
         return orig(path, data, *a, **k)
-    mp.setattr(mod.nfits, "write_image", rec)
+    mp.setattr(writer, "write_image", rec)
     return written
 
 
