@@ -41,7 +41,6 @@ from .ops import fourier, grf, imageops, interp, sht
 from .ops import noise as noise_ops
 from .ops import solve as solve_ops
 from .utils import fits as nfits
-from .utils import fits_rows
 from .utils import timing
 
 
@@ -364,6 +363,16 @@ class MapFilter:
             "realSpaceProfile1d_%s#%s.png" % (self.label, self.tileName)))
         plt.close(fig)
 
+    def saveRMSMap(self, RMSMap):
+        """Write the tile's RMS map, RICE_1, to
+        ``selFnDir/<tile>/RMSMap_<label>#<tile>.fits``."""
+        RMSFileName = os.path.join(
+            self.selFnDir, self.tileName,
+            "RMSMap_%s#%s.fits" % (self.label, self.tileName))
+        os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
+        nfits.write_image(RMSFileName, RMSMap, self.wcs.header,
+                          compressionType="RICE_1")
+
     # -- filter state ------------------------------------------------------------
     def saveFilter(self):
         """Write the filter state to the ``filter_*.fits`` cache: the
@@ -677,12 +686,7 @@ class MatchedFilter(MapFilter):
             RMSMap = RMSMap * surveyMask
 
         if params.get("saveRMSMap") and RMSMap is not None:
-            RMSFileName = os.path.join(
-                self.selFnDir, self.tileName,
-                "RMSMap_%s#%s.fits" % (self.label, self.tileName))
-            os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
-            fits_rows.write_image(RMSFileName, RMSMap, self.wcs.header,
-                                  compressionType="RICE_1")
+            self.saveRMSMap(RMSMap)
         if params.get("saveFilter") and self.filterFileName is not None:
             self.saveFilter()
         if params.get("savePlots") and self.diagnosticsDir is not None:
@@ -1186,12 +1190,7 @@ class RealSpaceMatchedFilter(MapFilter):
         RMSMap = RMSMap * surveyMask
 
         if params.get("saveRMSMap"):
-            RMSFileName = os.path.join(
-                self.selFnDir, self.tileName,
-                "RMSMap_%s#%s.fits" % (self.label, self.tileName))
-            os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
-            fits_rows.write_image(RMSFileName, RMSMap, self.wcs.header,
-                                  compressionType="RICE_1")
+            self.saveRMSMap(RMSMap)
 
         return {"data": np.asarray(filteredMap), "wcs": self.wcs,
                 "obsFreqGHz": combinedObsFreqGHz,

@@ -29,7 +29,6 @@ from .models import profiles, sz
 from .models.beams import BeamProfile
 from .ops import fourier, grf, imageops, sht
 from .utils import fits as nfits
-from .utils import fits_rows
 from .utils import timing
 from .utils.tables import Table, vstack
 from .utils.wcs import WCS, calcAngSepDeg, clipUsingRADecCoords
@@ -526,10 +525,9 @@ class TileDict(dict):
         for tileName in self.keys():
             if self.tileCoordsDict and tileName in self.tileCoordsDict:
                 headers[tileName] = self.tileCoordsDict[tileName]["header"]
-        write = fits_rows.write_mef if compressionType in fits_rows.TYPES \
-            else nfits.write_mef
-        write(outFileName, {k: np.asarray(v) for k, v in self.items()},
-              headers, compressionType)
+        nfits.write_mef(outFileName, {k: np.asarray(v)
+                                      for k, v in self.items()},
+                        headers=headers, compressionType=compressionType)
 
     def saveStitchedFITS(self, outFileName, stitchedWCS,
                          compressionType=None):
@@ -542,9 +540,8 @@ class TileDict(dict):
             w = min(maxX - minX, tile.shape[1])
             d[minY:minY + h, minX:minX + w] = \
                 np.maximum(d[minY:minY + h, minX:minX + w], tile[:h, :w])
-        write = fits_rows.write_image \
-            if compressionType in fits_rows.TYPES else nfits.write_image
-        write(outFileName, d, stitchedWCS.header, compressionType)
+        nfits.write_image(outFileName, d, stitchedWCS.header,
+                          compressionType=compressionType)
 
 
 def _distance_mask(shape, wcs, RADeg, decDeg, maxDistDeg):

@@ -782,8 +782,8 @@ def batchFilterTilesMulti(config, fList, tileNames=None, mesh=None,
     return results
 
 
-def _emit_result(config, filterObj, tileName, dataMap, SNMap, RMSMap,
-                 tileMask, undoPixelWindow, results):
+def _emit_result(filterObj, tileName, dataMap, SNMap, RMSMap, tileMask,
+                 undoPixelWindow, results):
     """Per-tile result assembly (the tail of the host engine's
     buildAndApply): pixel-window undo on the host at tile shape, RMS-map
     save, output-units metadata."""
@@ -797,7 +797,7 @@ def _emit_result(config, filterObj, tileName, dataMap, SNMap, RMSMap,
         dataMap[zeroMask] = 0
     params = filterObj.params
     if params.get("saveRMSMap") and RMSMap is not None:
-        _writeRMSMap(config, filterObj, tileName, RMSMap)
+        filterObj.saveRMSMap(RMSMap)
     results[tileName] = dict({
         "data": dataMap, "wcs": filterObj.wcs, "SNMap": SNMap,
         "RMSMap": RMSMap, "surveyMask": tileMask,
@@ -812,16 +812,6 @@ def _unitsMeta(filterObj):
     obsFreqGHz = float(list(filterObj.beamSolidAnglesDict)[0])
     return {"mapUnits": "uK", "obsFreqGHz": obsFreqGHz,
             "beamSolidAngle_nsr": filterObj.beamSolidAnglesDict[obsFreqGHz]}
-
-
-def _writeRMSMap(config, filterObj, tileName, RMSMap):
-    from ..utils import fits_rows
-    RMSFileName = os.path.join(
-        config.selFnDir, tileName,
-        "RMSMap_%s#%s.fits" % (filterObj.label, tileName))
-    os.makedirs(os.path.dirname(RMSFileName), exist_ok=True)
-    fits_rows.write_image(RMSFileName, RMSMap, filterObj.wcs.header,
-                          compressionType="RICE_1")
 
 
 def _download(t, tPhase):
@@ -938,7 +928,7 @@ def _saveFilterCaches(st, names, filt, hostNorms, fRelW,
                                        header)
 
 
-def _emit_overflow_fallback(config, out, i, filterObj, tileName, shape,
+def _emit_overflow_fallback(out, i, filterObj, tileName, shape,
                             scale, tileMask, cellsI, gridSize, saveRMS,
                             photRes, label, photLabel, tPhase):
     """Host-style result for a tile whose segment count exceeded the
@@ -970,14 +960,14 @@ def _emit_overflow_fallback(config, out, i, filterObj, tileName, shape,
               "noise-grid/trim parameters); fixed_ columns for its "
               "objects will be missing" % (label, tileName))
     if saveRMS:
-        _writeRMSMap(config, filterObj, tileName, rms)
+        filterObj.saveRMSMap(rms)
     return res
 
 
 _DET_KEYS = ("valid", "numPix", "comY", "comX", "peak", "peakY", "peakX")
 
 
-def _consume_detect_results(config, st, names, out, gridSize, trimPix,
+def _consume_detect_results(st, names, out, gridSize, trimPix,
                             detectParams, label, photLabel, photRes,
                             seenTiles, tPhase, results, consume, hostNorms,
                             saveRMS):
@@ -1037,7 +1027,7 @@ def _consume_detect_results(config, st, names, out, gridSize, trimPix,
                   "budget (%d): falling back to host detection for this "
                   "tile" % (nObj, label, tileName, maxObjects))
             res = _emit_overflow_fallback(
-                config, out, i, filterObj, tileName, shape, scale, tileMask,
+                out, i, filterObj, tileName, shape, scale, tileMask,
                 cells[i], gridSize, saveRMS, photRes, label, photLabel,
                 tPhase)
         else:
@@ -1072,7 +1062,7 @@ def _consume_detect_results(config, st, names, out, gridSize, trimPix,
                     rms = noise_ops.assemble_rms_host(
                         cells[i][:nCyT, :nCxT], shape[0], shape[1],
                         gridSize) * tileMask * scale
-                    _writeRMSMap(config, filterObj, tileName, rms)
+                    filterObj.saveRMSMap(rms)
         _deliver(label, tileName, res, results, consume, tPhase)
 
 
@@ -1179,9 +1169,8 @@ def _stage_bucket_uploads(staged, labels, names, padShape, policy,
     return ctx
 
 
-def _finish_label_lean(config, st, names, out, gridSize, label, tPhase,
-                       results, consume, hostNorms, saveRMS,
-                       undoPixelWindow):
+def _finish_label_lean(st, names, out, gridSize, label, tPhase, results,
+                       consume, hostNorms, saveRMS, undoPixelWindow):
     """Host-detection emission: download the filtered maps, cell grids and
     output masks, rebuild S/N on the host at each tile's true shape."""
     filtered = _download(out["filtered"], tPhase)
@@ -1201,7 +1190,7 @@ def _finish_label_lean(config, st, names, out, gridSize, label, tPhase,
             SNMap = np.where(rms > 0, filt / np.maximum(rms, 1e-30),
                              0.0) * tileMask
         RMSMap = rms * tileMask * scale if saveRMS else None
-        _emit_result(config, filterObj, tileName, filt * scale, SNMap,
+        _emit_result(filterObj, tileName, filt * scale, SNMap,
                      RMSMap, tileMask, undoPixelWindow, results[label])
         _deliver(label, tileName, results[label][tileName], results,
                  consume, tPhase)
@@ -1352,7 +1341,7 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
             if useDetect:
                 tPhase["detectLabels"] += 1
                 _consume_detect_results(
-                    config, st, names, out, gridSize, trimPix, detectParams,
+                    st, names, out, gridSize, trimPix, detectParams,
                     label, photLabel, photRes, seenTiles, tPhase, results,
                     consume, hostNorms, saveRMS)
                 if label == photLabel:
@@ -1361,9 +1350,9 @@ def _process_bucket(config, ctx, gridSize, trimPix, mesh,
                                "scale": stacksList[0]["unitsScale"]
                                * hostNorms}
             else:
-                _finish_label_lean(config, st, names, out, gridSize, label,
-                                   tPhase, results, consume, hostNorms,
-                                   saveRMS, undoPixelWindow)
+                _finish_label_lean(st, names, out, gridSize, label, tPhase,
+                                   results, consume, hostNorms, saveRMS,
+                                   undoPixelWindow)
         tPhase["hostOther"] -= (tPhase["download"] - down0) \
             + (tPhase["consume"] - cons0)
         del out
@@ -1466,7 +1455,7 @@ def _run_bucket_realspace(config, entries, names, gridSize, trimPix,
     outMask = _download(out["surveyMask"], tPhase).astype(float)
     del out, inputs
     for i, tileName in enumerate(names):
-        _emit_result(config, entries[tileName][0], tileName, filtered[i],
+        _emit_result(entries[tileName][0], tileName, filtered[i],
                      SNMaps[i], None if RMSMaps is None else RMSMaps[i],
                      outMask[i], False, results[label])  # undo ran in-step
         _deliver(label, tileName, results[label][tileName], results,

@@ -30,8 +30,12 @@ implement the subset of FITS that the pipeline needs natively:
 All I/O is host-side numpy; device code never touches this module.
 """
 
+import ctypes
+import functools
 import gzip
 import os
+import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -636,6 +640,131 @@ def _dither_stream(tileIndex, zdither0, npix):
     return np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _rows_library():
+    """The whole-image row coders of ``fits_rows.cpp`` (ctypes), built with
+    g++ on first use as :mod:`..native` builds its codec; None where they
+    cannot be built."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, "fits_rows.cpp")
+    path = os.path.join(here, "_libfitsrows.so")
+    deps = (src, os.path.join(os.path.dirname(here), "native", "rice.cpp"))
+    try:
+        if (not os.path.exists(path) or os.path.getmtime(path)
+                < max(os.path.getmtime(p) for p in deps)):
+            # build beside the library and rename: processes that build at
+            # once never load a half-written file
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=here)
+            os.close(fd)
+            try:
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
+                                src], check=True, capture_output=True)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        lib = ctypes.CDLL(path)
+    except Exception:
+        return None
+    lib.nemo_rice_encode_rows.restype = ctypes.c_long
+    lib.nemo_rice_encode_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.nemo_plio_encode_rows.restype = ctypes.c_long
+    lib.nemo_plio_encode_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
+        ctypes.c_void_p]
+    return lib
+
+
+def _quantise(img, quantizeLevel, ditherSeed):
+    """The int32 rows of a float image, each quantised as one tile, with
+    each row's ZSCALE and ZZERO, and the rows quantised one at a time:
+    those that hold a non-finite value, and every row of a dithered write.
+    The other rows are quantised all at once, bitwise as one at a time."""
+    ntiles = img.shape[0]
+    if ditherSeed is None:
+        slow = np.flatnonzero(~np.isfinite(img).all(axis=1))
+        src = img
+        if slow.size:
+            src = img.copy()
+            src[slow] = 0
+        std = src.std(axis=1).astype(np.float64)
+        zscales = np.where(std > 0, std / float(quantizeLevel), 1.0)
+        zmin = src.min(axis=1)
+        q = np.round((src - zmin[:, None])
+                     / zscales.astype(img.dtype)[:, None])
+        ints = np.clip(q, -2**31, 2**31 - 1).astype(np.int32)
+        zzeros = zmin.astype(np.float64)
+    else:
+        slow = np.arange(ntiles)
+        ints = np.empty(img.shape, dtype=np.int32)
+        zscales, zzeros = np.ones(ntiles), np.zeros(ntiles)
+    for t in slow:
+        tile = img[t]
+        finite = tile[np.isfinite(tile)]
+        std = float(finite.std()) if finite.size else 0.0
+        sc = std / float(quantizeLevel) if std > 0 else 1.0
+        zz = float(finite.min()) if finite.size else 0.0
+        if ditherSeed is not None:
+            rvals = _dither_stream(t, int(ditherSeed), tile.size)
+            q = np.round((tile - zz) / sc + rvals - 0.5)
+            q = np.clip(q, -2**31 + 2, 2**31 - 1)
+            q[~np.isfinite(tile)] = _DITHER_NULL
+            q = q.astype(np.int32)
+        else:
+            q = np.round((tile - zz) / sc)
+            q = np.clip(q, -2**31, 2**31 - 1).astype(np.int32)
+        ints[t] = q
+        zscales[t], zzeros[t] = sc, zz
+    return ints, zscales, zzeros, slow
+
+
+def _encode_rows(lib, ints, compressionType, bytepix):
+    """Every row's RICE_1 or PLIO_1 stream, end to end, and each row's
+    length in bytes: -1 for a row not coded (a Rice stream that would
+    overflow, a PLIO value outside [0, 2^27), every row of any other
+    type).  One call of ``lib``, or with ``lib`` None a row at a time."""
+    from .. import native
+
+    nrows, ncols = ints.shape
+    lens = np.full(nrows, -1, dtype=np.int64)
+    if compressionType not in ("RICE_1", "PLIO_1"):
+        return b"", lens
+    if lib is None:
+        streams = []
+        for t in range(nrows):
+            try:
+                if compressionType == "RICE_1":
+                    s = native.rice_encode(ints[t], bytepix)
+                else:
+                    s = _plio_encode(ints[t]).astype(">i2").tobytes()
+            except ValueError:
+                continue
+            streams.append(s)
+            lens[t] = len(s)
+        return b"".join(streams), lens
+    if compressionType == "RICE_1":
+        rows = np.ascontiguousarray(
+            ints, dtype={1: np.uint8, 2: np.int16, 4: np.int32}[bytepix])
+        out = np.empty(nrows * (ncols * bytepix + ncols // 2 + 64),
+                       dtype=np.uint8)
+        total = lib.nemo_rice_encode_rows(rows.ctypes.data, nrows, ncols,
+                                          bytepix, out.ctypes.data,
+                                          lens.ctypes.data)
+        stream = out[:max(total, 0)].tobytes()
+    else:
+        rows = np.ascontiguousarray(ints, dtype=np.int32)
+        out = np.empty(nrows * (3 * ncols + 7), dtype=np.int16)
+        total = lib.nemo_plio_encode_rows(rows.ctypes.data, nrows, ncols,
+                                          out.ctypes.data, lens.ctypes.data)
+        stream = out[:max(total, 0)].astype(">i2").tobytes()
+        lens = np.where(lens < 0, -1, 2 * lens)
+    if total < 0:
+        raise ValueError("%s row encoder error %d" % (compressionType, total))
+    return stream, lens
+
+
 def _compressed_image_hdu_bytes(data, header, compressionType,
                                 quantizeLevel=16.0, name="",
                                 ditherSeed=None):
@@ -643,9 +772,17 @@ def _compressed_image_hdu_bytes(data, header, compressionType,
 
     ``ditherSeed`` (1..10000) enables SUBTRACTIVE_DITHER_1 quantisation
     for float data (``ZDITHER0 = ditherSeed``); None writes NO_DITHER.
+
+    The bytes of a writer that codes one row at a time, coded one whole
+    image at a time: :func:`_quantise`, then :func:`_encode_rows` in one
+    call of ``fits_rows.cpp``'s library where it loads.  A row not coded
+    is gzipped.  Counters: ``fits.rows_native``, the RICE_1/PLIO_1 rows
+    that took no Python step of their own; ``fits.rows_fallback``, the
+    others.
     """
-    from .. import native
     import zlib
+
+    from . import timing
 
     data = np.asarray(data)
     if data.dtype == np.bool_:
@@ -680,87 +817,57 @@ def _compressed_image_hdu_bytes(data, header, compressionType,
             data = data.astype(np.int32)
             zbitpix, bytepix = 32, 4
 
-    img2d = data.reshape(-1, data.shape[-1])
+    img2d = np.ascontiguousarray(data.reshape(-1, data.shape[-1]))
     ntiles = img2d.shape[0]
     tileLen = img2d.shape[1]
-
-    compTiles, gzipTiles = [], []
-    zscales = np.ones(ntiles)
-    zzeros = np.zeros(ntiles)
-    for t in range(ntiles):
-        tile = img2d[t]
-        if isfloat:
-            finite = tile[np.isfinite(tile)]
-            std = float(finite.std()) if finite.size else 0.0
-            sc = std / float(quantizeLevel) if std > 0 else 1.0
-            zz = float(finite.min()) if finite.size else 0.0
-            if ditherSeed is not None:
-                rvals = _dither_stream(t, int(ditherSeed), tile.size)
-                q = np.round((tile - zz) / sc + rvals - 0.5)
-                q = np.clip(q, -2**31 + 2, 2**31 - 1)
-                q[~np.isfinite(tile)] = _DITHER_NULL
-                q = q.astype(np.int32)
-            else:
-                q = np.round((tile - zz) / sc)
-                q = np.clip(q, -2**31, 2**31 - 1).astype(np.int32)
-            zscales[t], zzeros[t] = sc, zz
-            ints = q
-        else:
-            ints = tile
-        if compressionType == "RICE_1":
-            try:
-                compTiles.append(native.rice_encode(ints, bytepix))
-                gzipTiles.append(b"")
-                continue
-            except ValueError:
-                pass  # pathological tile: fall through to the gzip column
-        if compressionType == "PLIO_1":
-            try:
-                compTiles.append(
-                    _plio_encode(ints).astype(">i2").tobytes())
-                gzipTiles.append(b"")
-                continue
-            except ValueError:
-                pass  # negative/out-of-range values: gzip column
-        # GZIP_1 (also the RICE overflow fallback)
-        dt = _BITPIX_TO_DTYPE[zbitpix]
-        if isfloat and compressionType != "RICE_1":
-            rawb = np.ascontiguousarray(tile, dtype=dt).tobytes()
-        elif isfloat:
-            rawb = np.ascontiguousarray(tile, dtype=dt).tobytes()
-        else:
-            rawb = np.ascontiguousarray(ints, dtype=dt).tobytes()
-        gzbuf = zlib.compressobj(6, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
-        gz = gzbuf.compress(rawb) + gzbuf.flush()
-        if compressionType == "RICE_1":
-            compTiles.append(b"")
-            gzipTiles.append(gz)
-        else:
-            compTiles.append(gz)
-            gzipTiles.append(b"")
-
     useQuant = isfloat and compressionType == "RICE_1"
-    haveGzipCol = any(len(g) for g in gzipTiles)
+    ints, slow = img2d, []
+    if useQuant:
+        ints, zscales, zzeros, slow = _quantise(img2d, quantizeLevel,
+                                                ditherSeed)
+    # an image of no pixels is coded a row at a time, as ever
+    lib = _rows_library() if img2d.size else None
+    stream, lens = _encode_rows(lib, ints, compressionType, bytepix)
 
-    # Build heap + descriptors (P-descriptor counts are in ELEMENTS of
-    # the column type; PLIO tiles are 16-bit words in a '1PI' column)
+    # a row not coded is gzipped (a float row as it is, unquantised): in
+    # the gzip column under RICE_1, in the data column otherwise
+    dt = _BITPIX_TO_DTYPE[zbitpix]
+    gzips = {}
+    for t in np.flatnonzero(lens < 0):
+        gzbuf = zlib.compressobj(6, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
+        row = np.ascontiguousarray(img2d[t] if isfloat else ints[t], dtype=dt)
+        gzips[t] = gzbuf.compress(row.tobytes()) + gzbuf.flush()
+    if compressionType in ("RICE_1", "PLIO_1"):
+        nNative = 0 if lib is None else \
+            ntiles - np.union1d(slow, list(gzips)).size
+        timing.count("fits.rows_native", nNative)
+        timing.count("fits.rows_fallback", ntiles - nNative)
+    haveGzipCol = compressionType == "RICE_1" and bool(gzips)
+    compLens = np.maximum(lens, 0)
+    gzipLens = np.zeros(ntiles, dtype=np.int64)
+    for t, gz in gzips.items():
+        (gzipLens if haveGzipCol else compLens)[t] = len(gz)
+
+    # the heap: each row's stream, or its gzip stream where it has one
+    pieces, at = [], 0
+    cuts = np.cumsum(np.maximum(lens, 0)) - np.maximum(lens, 0)
+    for t, gz in gzips.items():
+        pieces += [stream[at:cuts[t]], gz]
+        at = cuts[t]
+    heap = b"".join(pieces + [stream[at:]])
+
+    # P-descriptor counts are in ELEMENTS of the column type (PLIO tiles
+    # are 16-bit words in a '1PI' column)
     elemSize = 2 if compressionType == "PLIO_1" else 1
-    heap = bytearray()
-    desc1 = np.zeros((ntiles, 2), dtype=">i4")
-    desc2 = np.zeros((ntiles, 2), dtype=">i4")
-    for t in range(ntiles):
-        desc1[t] = (len(compTiles[t]) // elemSize, len(heap))
-        heap += compTiles[t]
-        if haveGzipCol:
-            desc2[t] = (len(gzipTiles[t]), len(heap))
-            heap += gzipTiles[t]
-
-    compTform = "1P%s(%d)" % ("I" if elemSize == 2 else "B", max(
-        (len(c) // elemSize for c in compTiles), default=0))
+    offsets = np.cumsum(compLens + gzipLens) - (compLens + gzipLens)
+    desc1 = np.stack([compLens // elemSize, offsets], axis=1).astype(">i4")
+    desc2 = np.stack([gzipLens, offsets + compLens], axis=1).astype(">i4")
+    compTform = "1P%s(%d)" % ("I" if elemSize == 2 else "B",
+                              (compLens // elemSize).max(initial=0))
     cols = [("COMPRESSED_DATA", compTform, desc1.view(np.uint8))]
     if haveGzipCol:
-        cols.append(("GZIP_COMPRESSED_DATA", "1PB(%d)" % max(
-            (len(g) for g in gzipTiles), default=0), desc2.view(np.uint8)))
+        cols.append(("GZIP_COMPRESSED_DATA",
+                     "1PB(%d)" % gzipLens.max(), desc2.view(np.uint8)))
     if useQuant:
         cols.append(("ZSCALE", "1D",
                      zscales.astype(">f8").reshape(-1, 1).view(np.uint8)))
@@ -817,8 +924,7 @@ def _compressed_image_hdu_bytes(data, header, compressionType,
             cards.append(_format_card(key, value))
     blob = _finish_header(cards)
 
-    body = np.concatenate([c[2] for c in cols], axis=1).tobytes() \
-        + bytes(heap)
+    body = np.concatenate([c[2] for c in cols], axis=1).tobytes() + heap
     blob += body + b"\x00" * (_padded(len(body)) - len(body))
     return blob
 

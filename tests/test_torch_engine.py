@@ -578,27 +578,30 @@ def test_batched_config_keys_are_validated(survey, key, value):
 
 def test_selfn_files_match_the_copied_writer(survey, tmp_path, monkeypatch):
     """A detect-mode run writes its photometry filter's RMS maps and the
-    area and flag masks (MEFs and stitched maps) through the whole-image
-    encoder: each file is
-    byte for byte what the copied per-row writer writes for the same
-    arrays, and every row of them took the whole-image path."""
-    from nemo_tpu_torch.utils import fits_rows
+    area and flag masks (MEFs and stitched maps), its compressed images,
+    with the whole-image encoder: each file is byte for byte what the JAX
+    package's per-row writer writes for the same arrays, and every row of
+    them took the whole-image path."""
+    from nemo_tpu.utils import fits as jfits
     calls = []
-    writeImage, writeMef = fits_rows.write_image, fits_rows.write_mef
+    writeImage, writeMef = nfits.write_image, nfits.write_mef
 
     def image(path, data, header=None, compressionType=None, **k):
-        calls.append(("image", path, np.array(data), dict(header or {}),
-                      compressionType))
+        if compressionType is not None:
+            calls.append(("image", path, np.array(data),
+                          dict(header or {}), compressionType))
         return writeImage(path, data, header, compressionType, **k)
 
     def mef(path, named, headers=None, compressionType=None, **k):
-        calls.append(("mef", path, {n: np.array(a) for n, a in named.items()},
-                      {n: dict(h) for n, h in (headers or {}).items()},
-                      compressionType))
+        if compressionType is not None:
+            calls.append(("mef", path,
+                          {n: np.array(a) for n, a in named.items()},
+                          {n: dict(h) for n, h in (headers or {}).items()},
+                          compressionType))
         return writeMef(path, named, headers, compressionType, **k)
 
-    monkeypatch.setattr(fits_rows, "write_image", image)
-    monkeypatch.setattr(fits_rows, "write_mef", mef)
+    monkeypatch.setattr(nfits, "write_image", image)
+    monkeypatch.setattr(nfits, "write_mef", mef)
     before = dict(timing.RECORDER.counters)
     _, config = run_torch(survey["cfg"], str(tmp_path / "det"),
                           useDeviceBatching=True, useDeviceDetection=True,
@@ -616,12 +619,12 @@ def test_selfn_files_match_the_copied_writer(survey, tmp_path, monkeypatch):
         if kind == "image":
             assert compressionType == ("PLIO_1" if "stitched" in path
                                        else "RICE_1")
-            nfits.write_image(ref, data, headers,
+            jfits.write_image(ref, data, headers,
                               compressionType=compressionType)
             rows += data.shape[0]
         else:
             assert compressionType == "PLIO_1" and len(data) == 4
-            nfits.write_mef(ref, data, headers=headers,
+            jfits.write_mef(ref, data, headers=headers,
                             compressionType=compressionType)
             rows += sum(a.shape[0] for a in data.values())
         with open(path, "rb") as f, open(ref, "rb") as g:

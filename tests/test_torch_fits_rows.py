@@ -1,11 +1,13 @@
-"""The port's whole-image FITS encoder (``nemo_tpu_torch.utils.fits_rows``)
-writes the bytes of the JAX package's per-row writer
-(``nemo_tpu.utils.fits``): RICE_1 floats and ints, PLIO_1 masks, MEFs
-with per-extension headers, the rows that leave the whole-image path
-(non-finite values, refused rows), the writer with no compiler, the
-counters that split the rows, and a round trip through ``fits.read``."""
+"""The port's FITS writer (``nemo_tpu_torch.utils.fits``), which codes a
+compressed image one whole image at a time with the library built from
+``utils/fits_rows.cpp``, writes the bytes of the JAX package's per-row
+writer (``nemo_tpu.utils.fits``): RICE_1 floats (with and without
+dithering) and ints, PLIO_1 masks, MEFs with per-extension headers,
+GZIP_1, HCOMPRESS_1 and uncompressed images, the rows that leave the
+whole-image path (non-finite values, dithered writes, refused rows), the
+writer with no compiler, the counters that split the rows, and a round
+trip through ``fits.read``."""
 
-import os
 import warnings
 
 import numpy as np
@@ -13,7 +15,6 @@ import pytest
 
 from nemo_tpu.utils import fits as jfits
 from nemo_tpu_torch.utils import fits as nfits
-from nemo_tpu_torch.utils import fits_rows
 from nemo_tpu_torch.utils import timing
 
 
@@ -71,6 +72,7 @@ IMAGES = {
         .astype(np.float32), "RICE_1"),
     "rice_f32_zeros": (lambda r: np.zeros((8, 64), np.float32), "RICE_1"),
     "rice_nonfinite": (_nonfinite, "RICE_1"),
+    "rice_f32_dithered": (_nonfinite, "RICE_1"),
     "rice_uint8": (lambda r: r.integers(0, 256, (33, 129))
                    .astype(np.uint8), "RICE_1"),
     "rice_int16": (lambda r: np.cumsum(r.integers(-300, 300, (20, 500)),
@@ -96,6 +98,9 @@ ALL_NATIVE = {"rice_f32_rms_map", "rice_f64", "rice_f32_constant_rows",
               "rice_int64", "plio_mask01", "plio_bool", "plio_float_mask",
               "plio_float_non_integral", "plio_jumps", "plio_wide_runs",
               "plio_3d"}
+# SUBTRACTIVE_DITHER_1 writes, by their ZDITHER0: every row is quantised
+# one at a time
+DITHER_SEEDS = {"rice_f32_dithered": 7}
 HEADER = {"CTYPE1": "RA---CAR", "CRVAL1": 30.0, "CDELT1": -0.0083333,
           "BUNIT": "uK"}
 
@@ -110,32 +115,38 @@ def _counters():
             for k in ("fits.rows_native", "fits.rows_fallback")}
 
 
-def _write_both(tmp_path, data, compressionType):
+def _write_both(tmp_path, data, compressionType, ditherSeed=None):
     a, b = str(tmp_path / "jax.fits"), str(tmp_path / "rows.fits")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        jfits.write_image(a, data, HEADER, compressionType=compressionType)
+        jfits.write_image(a, data, HEADER, compressionType=compressionType,
+                          ditherSeed=ditherSeed)
         before = _counters()
-        fits_rows.write_image(b, data, HEADER, compressionType)
+        nfits.write_image(b, data, HEADER, compressionType=compressionType,
+                          ditherSeed=ditherSeed)
     after = _counters()
     return _bytes(a), _bytes(b), {k: after[k] - before[k] for k in after}
 
 
 def test_library_builds():
-    assert fits_rows._load() is not None
+    assert nfits._rows_library() is not None
 
 
 @pytest.mark.parametrize("case", sorted(IMAGES))
 def test_write_image_bytes_match(case, tmp_path):
     make, compressionType = IMAGES[case]
     data = make(np.random.default_rng(len(case)))
-    ref, got, counted = _write_both(tmp_path, data, compressionType)
+    ref, got, counted = _write_both(tmp_path, data, compressionType,
+                                    DITHER_SEEDS.get(case))
     assert got == ref
     rows = int(np.prod(np.shape(data)[:-1]))
     assert counted["fits.rows_native"] + counted["fits.rows_fallback"] \
         == rows
     if case in ALL_NATIVE:
         assert counted == {"fits.rows_native": rows, "fits.rows_fallback": 0}
+    if case in DITHER_SEEDS:
+        assert b"SUBTRACTIVE_DITHER_1" in got
+        assert counted == {"fits.rows_native": 0, "fits.rows_fallback": rows}
 
 
 @pytest.mark.parametrize("case,fallback", [("rice_nonfinite", 4),
@@ -170,7 +181,7 @@ def test_refused_rice_rows_take_the_gzip_column(dtype, tmp_path,
             raise ValueError("RICE stream would overflow; use GZIP")
         return encode(arr, bytepix)
 
-    rows = fits_rows._encode_rows
+    rows = nfits._encode_rows
 
     def refusingRows(lib, ints, compressionType, bytepix):
         stream, lens = rows(lib, ints, compressionType, bytepix)
@@ -182,7 +193,7 @@ def test_refused_rice_rows_take_the_gzip_column(dtype, tmp_path,
         return b"".join(keep), lens
 
     monkeypatch.setattr(jnative, "rice_encode", refusing)
-    monkeypatch.setattr(fits_rows, "_encode_rows", refusingRows)
+    monkeypatch.setattr(nfits, "_encode_rows", refusingRows)
     rng = np.random.default_rng(3)
     data = rng.integers(0, 120, (6, 100)).astype(dtype)
     ref, got, counted = _write_both(tmp_path, data, "RICE_1")
@@ -211,8 +222,8 @@ def test_write_mef_bytes_match(compressionType, tmp_path):
     jfits.write_mef(a, arrays, headers=headers,
                     compressionType=compressionType)
     before = _counters()
-    fits_rows.write_mef(b, arrays, headers=headers,
-                        compressionType=compressionType)
+    nfits.write_mef(b, arrays, headers=headers,
+                    compressionType=compressionType)
     after = _counters()
     assert _bytes(b) == _bytes(a)
     assert after["fits.rows_native"] - before["fits.rows_native"] == 4 * 48
@@ -222,9 +233,9 @@ def test_write_mef_bytes_match(compressionType, tmp_path):
 @pytest.mark.parametrize("case", ["rice_f32_rms_map", "rice_nonfinite",
                                   "plio_jumps", "plio_negative"])
 def test_no_compiler_takes_the_per_row_writer(case, tmp_path, monkeypatch):
-    """Where the library cannot be built every row takes the copied
-    per-row writer, and the bytes are the same."""
-    monkeypatch.setattr(fits_rows, "_load", lambda: None)
+    """Where the library cannot be built every row is coded one at a
+    time, and the bytes are the same."""
+    monkeypatch.setattr(nfits, "_rows_library", lambda: None)
     make, compressionType = IMAGES[case]
     data = make(np.random.default_rng(len(case)))
     ref, got, counted = _write_both(tmp_path, data, compressionType)
@@ -234,23 +245,29 @@ def test_no_compiler_takes_the_per_row_writer(case, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("compressionType", [None, "GZIP_1", "HCOMPRESS_1"])
-def test_other_compressions_are_refused(compressionType, tmp_path):
-    """Only RICE_1 and PLIO_1 are written here: any other write is refused
-    before a file is made."""
-    data = rms_map(np.random.default_rng(2))
-    path = str(tmp_path / "x.fits")
-    with pytest.raises(ValueError, match="RICE_1 or PLIO_1"):
-        fits_rows.write_image(path, data, HEADER, compressionType)
-    with pytest.raises(ValueError, match="RICE_1 or PLIO_1"):
-        fits_rows.write_mef(path, {"A": data}, {}, compressionType)
-    assert not os.path.exists(path)
+def test_other_compressions_bytes_match(compressionType, tmp_path):
+    """Any other compression (HCOMPRESS_1 is gzipped a row at a time, as
+    GZIP_1) and no compression write the per-row writer's bytes, images
+    and MEFs, and count no RICE_1/PLIO_1 rows."""
+    rng = np.random.default_rng(2)
+    data = rms_map(rng)
+    ints = rng.integers(-300, 300, (20, 50)).astype(np.int16)
+    before = _counters()
+    ref, got, _ = _write_both(tmp_path, data, compressionType)
+    assert got == ref
+    a, b = str(tmp_path / "jax.fits"), str(tmp_path / "rows.fits")
+    jfits.write_mef(a, {"A": data, "B": ints}, {"B": HEADER},
+                    compressionType)
+    nfits.write_mef(b, {"A": data, "B": ints}, {"B": HEADER},
+                    compressionType)
+    assert _bytes(b) == _bytes(a)
+    assert _counters() == before
 
 
 @pytest.mark.parametrize("compressionType", [None, "GZIP_1", "PLIO_1"])
 def test_tile_dict_mef_bytes_match(compressionType, tmp_path):
-    """``TileDict.saveMEF`` writes the copied writer's bytes: PLIO_1
-    through the whole-image encoder, other compressions through
-    ``utils.fits``."""
+    """``TileDict.saveMEF`` writes the per-row writer's bytes, and only
+    its PLIO_1 rows are counted."""
     from nemo_tpu_torch.maps import TileDict
     rng = np.random.default_rng(5)
     arrays = {"T%d" % i: (rng.random((20, 30 + i)) < 0.7).astype(np.float64)
@@ -277,9 +294,9 @@ def test_round_trip_through_read(tmp_path):
     mask = (rng.random((30, 9001)) < 0.6).astype(np.uint8)
     mask[:, 100:5000] = 1
     imgPath, mefPath = str(tmp_path / "rms.fits"), str(tmp_path / "m.fits")
-    fits_rows.write_image(imgPath, img, HEADER, compressionType="RICE_1")
-    fits_rows.write_mef(mefPath, {"A": mask, "B": 1 - mask},
-                        headers={"A": HEADER}, compressionType="PLIO_1")
+    nfits.write_image(imgPath, img, HEADER, compressionType="RICE_1")
+    nfits.write_mef(mefPath, {"A": mask, "B": 1 - mask},
+                    headers={"A": HEADER}, compressionType="PLIO_1")
     hdus = nfits.read(imgPath)
     back = hdus[-1].data
     assert back.shape == img.shape

@@ -211,17 +211,15 @@ def band_dicts(nBands, shape):
 
 def capture_rms(mp, mod):
     """Record the RMS maps a package's filters write, before RICE
-    compression quantises them (the port writes them through
-    ``utils.fits_rows``, the JAX package through ``utils.fits``)."""
+    compression quantises them."""
     written = {}
-    writer = getattr(mod, "fits_rows", mod.nfits)
-    orig = writer.write_image
+    orig = mod.nfits.write_image
 
     def rec(path, data, *a, **k):
         if os.path.basename(path).startswith("RMSMap_"):
             written[os.path.basename(path)] = np.array(data)
         return orig(path, data, *a, **k)
-    mp.setattr(writer, "write_image", rec)
+    mp.setattr(mod.nfits, "write_image", rec)
     return written
 
 
